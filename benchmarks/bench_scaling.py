@@ -1,28 +1,27 @@
 """Scaling-efficiency benchmark: solves/s per device as the mesh grows.
 
-BASELINE target: >= 80% solves/s scaling efficiency at 1 chip / 1 host /
->= 2 hosts (batch sharded over ICI/DCN).  The workload is embarrassingly
+BASELINE target: >= 80% solves/s scaling efficiency from one card to
+four (batch sharded over the cards).  The workload is embarrassingly
 parallel over the batch (no cross-lane collectives inside the solve; only
 the final convergence-stats psum), so the measured efficiency reflects
-sharding/compilation overhead rather than communication volume.
-
-On this single-chip environment the multi-device path is validated on the
-virtual CPU mesh (plumbing + weak-scaling shape); on a real pod slice the
-same script measures true ICI/DCN scaling. One JSON line per mesh size.
+sharding overhead rather than communication volume.  Weak scaling: a
+fixed batch per device.  One JSON line per mesh size; run on the cards
+(one process drives all of them):  python benchmarks/bench_scaling.py
 """
 
 from __future__ import annotations
 
 import json
+import os
 import sys
 import time
 
 import numpy as np
 
-sys.path.insert(0, ".")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import jax
-import jax.numpy as jnp
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
 
 
 def measure(n_devices: int, per_device_batch: int = 512, horizon: int = 50,
@@ -53,6 +52,9 @@ def measure(n_devices: int, per_device_batch: int = 512, horizon: int = 50,
 
 
 def main():
+    from nmpc_tpu.utils.cache import enable_compilation_cache
+
+    enable_compilation_cache()
     n_all = len(jax.devices())
     base = measure(1)
     print(json.dumps({"metric": "scaling_solves_per_s_1dev",

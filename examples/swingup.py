@@ -1,6 +1,6 @@
 """Example: cart-pole swing-up with DDP — single solve and closed-loop MPC.
 
-Run:  python examples/swingup.py        (TPU or CPU)
+Run:  python examples/swingup.py        (GPU or CPU)
 """
 
 import sys

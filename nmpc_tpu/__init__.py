@@ -1,10 +1,10 @@
-"""nmpc_tpu — a TPU-native nonlinear model predictive control framework.
+"""nmpc_tpu — a batched nonlinear model predictive control framework in JAX.
 
 A from-scratch JAX/XLA/Pallas rebuild of the capabilities of isri-aist/NMPC
 (three solver families: DDP/iLQG, FMPC = DMS + primal-dual interior point +
-Riccati, and C/GMRES continuation), redesigned TPU-first: autodiff
-derivatives, scan-based recursions, batched solves via vmap, multi-chip
-scaling via jax.sharding/pjit.
+Riccati, and C/GMRES continuation), redesigned accelerator-first: autodiff
+derivatives, scan-based recursions, batched solves via vmap, multi-device
+scaling via jax.sharding.
 """
 
 from nmpc_tpu.core.problem import ContinuousProblem, Problem

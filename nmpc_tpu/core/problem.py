@@ -5,7 +5,7 @@ dynamics/cost and *hand-written analytic derivatives*
 (``nmpc_ddp/include/nmpc_ddp/DDPProblem.h:99-198``,
 ``nmpc_fmpc/include/nmpc_fmpc/FmpcProblem.h:94-107``).
 
-TPU-native redesign: a problem is a frozen bundle of **pure jittable
+Accelerator-native redesign: a problem is a frozen bundle of **pure jittable
 callables**; derivatives default to autodiff (``jacfwd`` / ``hessian``), with
 optional user-supplied analytic derivative callables covering the reference's
 signature set.  Time-varying input / inequality dimensions
@@ -150,7 +150,7 @@ class ContinuousProblem:
     the reference's virtuals) or supply ``running_cost``/``terminal_cost``
     (+ optional ``eq_const`` with multiplier layout) and let autodiff derive
     them from the Hamiltonian H = L + lambda^T f (+ mu^T C) — an honest
-    TPU-era improvement over hand-derived costates.
+    improvement over hand-derived costates.
     """
 
     dim_x: int

@@ -1,4 +1,4 @@
-"""Core pytree / config types for the TPU-native NMPC framework.
+"""Core pytree / config types for the NMPC framework.
 
 Design notes
 ------------
@@ -8,7 +8,7 @@ objects of the reference (``nmpc_ddp/include/nmpc_ddp/DDPSolver.h:47-110``,
 ``nmpc_fmpc/include/nmpc_fmpc/FmpcSolver.h:58-89``).
 
 Results and traces are **registered pytree dataclasses** of jnp arrays so
-they flow through jit/vmap/pjit and are trivially checkpointable — the TPU
+they flow through jit/vmap/pjit and are trivially checkpointable — the
 equivalent of the reference's ``ControlData`` / ``TraceData`` structs
 (``DDPSolver.h:113-216``).
 """
@@ -54,7 +54,7 @@ class DDPConfig:
     Field-for-field equivalent of the reference ``DDPSolver::Configuration``
     (``nmpc_ddp/include/nmpc_ddp/DDPSolver.h:47-110``).  ``alpha_list`` is the
     reference's 11-point log-spaced backtracking schedule 10^0..10^-3
-    (``DDPSolver.h:50-60``).  TPU redesign: all alphas are rolled out in
+    (``DDPSolver.h:50-60``).  Batched redesign: all alphas are rolled out in
     parallel (extra vmap axis) and the first acceptable one is selected,
     which reproduces the reference's first-accepted-in-order semantics.
     """
@@ -82,20 +82,15 @@ class DDPConfig:
     cost_update_thre: float = 1e-7
     # Backward-pass kernel for the batched (stacked) solve path:
     # "stacked" = batch-minor XLA kernel (kernels/ddp_backward.py);
-    # "pallas"  = fused Pallas TPU kernel with double-buffered stage DMA
-    #             (kernels/ddp_backward_pallas.py; requires B % 128 == 0);
-    # "remat"   = whole-iteration fused Pallas kernel: the derivative
-    #             sweep is ELIMINATED — stage derivatives are recomputed
-    #             from (x_i, u_i) inside the backward kernel
-    #             (kernels/ddp_backward_remat.py; requires B % 128 == 0,
-    #             fp32, deriv_dtype "same", first-order, and
-    #             Mosaic-traceable problem callbacks);
-    # "auto"    = "remat" when eligible, else "pallas" when eligible,
-    #             else "stacked".  Measured on a v5e chip at the headline
-    #             config (B=4096, N=100 cart-pole): pallas lifted the
-    #             solve 446k -> 639k solves/s (benchmarks/bench_backward.py);
-    #             remat removes the ~75 MB/iter derivative buffer on top
-    #             (BENCH_RESULTS.md round 5).
+    # "pallas"  = fused Pallas/Triton GPU kernel, one program per block of
+    #             lanes with the value-function carry in registers
+    #             (kernels/ddp_backward_pallas.py; fp32, first-order);
+    # "remat"   = the fused kernel fed by the trajectory instead of the
+    #             derivative sweep: stage derivatives are recomputed
+    #             in-kernel from (x_i, u_i) (kernels/ddp_backward_remat.py;
+    #             fp32, deriv_dtype "same", first-order, tile-interpretable
+    #             problem callbacks);
+    # "auto"    = "pallas" on a GPU when eligible, else "stacked".
     backward_impl: str = "auto"
     # Mixed precision: dtype for the dynamics/cost derivative sweeps
     # (incl. terminal expansion), with everything downstream (backward,
@@ -114,9 +109,7 @@ class DDPConfig:
     #           and sweep driven by an accept-history hysteresis
     #           predictor (try head iff the last ``ls_auto_hysteresis``
     #           consecutive iterations had every running lane accept
-    #           alpha[0]).  Measured reps=40 on chip (2026-08-21, remat
-    #           backward): headline 1,323k vs 1,328k best-static (0.4%),
-    #           bipedal 124k vs 130k best-static (4.5%; round-4 gap 8%).
+    #           alpha[0]).
     # "head"  = materialize the alpha[0] rollout first and sweep the
     #           remaining alphas only (lax.cond) when some running lane
     #           rejects it — 1 scan when full steps accept, 3 when
@@ -125,26 +118,23 @@ class DDPConfig:
     #           scans) — competitive only when lanes backtrack DEEP into
     #           the schedule nearly every iteration (bipedal N=300);
     # "serial" = the reference's serial early-exit loop batched as a
-    #           while_loop over alphas — measured negative result (slower
-    #           on every workload: per-trip trajectory-buffer copies,
-    #           max-depth scans), kept opt-in for apples-to-apples
-    #           comparison with the reference's cost model.
+    #           while_loop over alphas (per-trip trajectory-buffer copies),
+    #           kept for apples-to-apples comparison with the reference's
+    #           cost model.
     ls_mode: str = "auto"
     # How the line-search rollouts themselves are evaluated (orthogonal to
     # ls_mode, which decides WHICH alphas get evaluated):
-    # "auto"  = fused Pallas rollout kernels (kernels/ddp_forward_remat.py:
-    #           per-stage refs streamed from HBM, dynamics/cost/terminal
-    #           tile-interpreted in-kernel) whenever the backward resolved
-    #           to "remat" and the rollout callables are tile-supported;
-    #           scan otherwise.  The sweep variant runs the identical
-    #           stage body as the selected-alpha variant, so accept
-    #           decisions stay consistent across ls_modes.
-    # "fused" = force the fused kernels (asserts eligibility);
-    # "scan"  = always the lax.scan paths (round-4 behavior).
+    # "auto"  = the fused Pallas/Triton selected-alpha rollout
+    #           (kernels/ddp_forward_remat.py: dynamics/cost/terminal
+    #           tile-interpreted in-kernel) on a GPU when the rollout
+    #           callables are tile-supported and cost sums stay at the
+    #           solve dtype; scan otherwise;
+    # "fused" = force the kernel (raises where it cannot run);
+    # "scan"  = always the lax.scan paths.
     forward_impl: str = "auto"
     # Consecutive all-lanes-accept-alpha[0] iterations required before the
-    # "auto" predictor tries the head path again after a reject (1 =
-    # round-4's one-step predictor).
+    # "auto" predictor tries the head path again after a reject (1 = a
+    # one-step predictor).
     ls_auto_hysteresis: int = 2
     # Max backward-pass lambda-retry attempts per iteration. The reference
     # retries unboundedly until lambda > lambda_max (DDPSolver.hpp:191-209);
@@ -213,27 +203,24 @@ class BoxQPConfig:
     armijo_param: float = 0.1
     # static bound on Armijo backtracking: the reference loop runs until
     # step < min_step (BoxQP.h:298-309), i.e. 0.6^k < 1e-22 => k >= 100;
-    # 104 covers it with margin (the r2 value 80 reached only 1.8e-18, so
-    # the exhaustion exit was unreachable)
+    # 104 covers it with margin (80 would reach only 1.8e-18, so the
+    # exhaustion exit would be unreachable)
     max_ls_iter: int = 104
     # number of projected-Newton iterations unrolled (masked) before the
     # while_loop continuation — in BOTH the stacked batched kernel and the
-    # fused Pallas kernel (round 4: the Pallas kernel gained the same
-    # while-loop continuation to max_iter, so this is a perf-only split
-    # everywhere, never a correctness cap): unrolled iterations fuse with
-    # no per-trip dispatch overhead, the continuation preserves exact
-    # reference semantics for the rare lanes needing more (measured:
-    # median 1 / p90 2 / max 3 trips on the vertical-motion config;
-    # benchmarks/profile_boxed_ddp.py)
+    # fused Pallas kernel (both continue with a while loop to max_iter, so
+    # this is a perf-only split, never a correctness cap): unrolled
+    # iterations fuse with no per-trip dispatch overhead, the continuation
+    # preserves exact reference semantics for the rare lanes needing more
+    # (the vertical-motion config needs 1-3 trips)
     unroll_iter: int = 4
     # width of the PARALLEL Armijo head in the batched kernel: the first
     # ls_block candidates (steps 1, 0.6, ..., 0.6^(ls_block-1)) are
     # evaluated in one batched block; lanes that accept none (rare — every
     # realistic accept lands well above 0.6^8 ~ 0.017) continue in an
     # exact masked sequential tail.  Bounds the per-QP-iteration memory
-    # traffic (the r2 all-candidates version streamed ~15 MB of [K,n,n,B]
-    # broadcasts per iteration and made the boxed backward 22x the
-    # unconstrained one)
+    # traffic (evaluating all candidates streams [K,n,n,B] broadcasts per
+    # iteration)
     ls_block: int = 9
 
 
@@ -331,20 +318,18 @@ class FmpcConfig:
     max_line_search_iter: int = 40
     # condensed-Riccati kernel for the batched solve path:
     #   "stacked" — batch-minor XLA scan (solvers/fmpc.py::_backward_bm)
-    #   "pallas"  — fused Pallas TPU kernel with the (s_vec, P) carry
-    #               resident in VMEM (kernels/fmpc_backward_pallas.py;
-    #               requires B % 128 == 0, fp32)
-    #   "auto"    — pallas when eligible on TPU, stacked otherwise
+    #   "pallas"  — fused Pallas/Triton GPU kernel with the (s_vec, P)
+    #               carry in registers (kernels/fmpc_backward_pallas.py;
+    #               fp32, ng >= 1)
+    #   "auto"    — pallas on a GPU when eligible, stacked otherwise
     backward_impl: str = "auto"
     # forward delta-recursion evaluation for the batched solve path
     # (orthogonal to backward_impl):
-    #   "auto"  — fused Pallas kernel (kernels/fmpc_forward_pallas.py:
-    #             per-stage A/B/x_bar/k/K streamed from HBM, dx carry in
-    #             VMEM) on TPU with B % 128 == 0 and fp32; measured e2e
-    #             wins at every bench shape (cart-pole N=100 B=4096
-    #             +50 %, oscillator N=20 B=4096 +5 %, N=100 B=1024 +5.6 %,
-    #             2026-08-21) — scan otherwise
-    #   "fused" — force the kernel; "scan" — always the lax.scan path
+    #   "auto"  — fused Pallas/Triton kernel (kernels/fmpc_forward_pallas.py:
+    #             per-stage A/B/x_bar/k/K loaded in-kernel, dx carry in
+    #             registers) on a GPU for fp32 solves; scan otherwise
+    #   "fused" — force the kernel (raises where it cannot run);
+    #   "scan"  — always the lax.scan path
     forward_impl: str = "auto"
 
     def __post_init__(self):

@@ -1,15 +1,13 @@
 """Batch-minor ("stacked") DDP backward pass — the hot kernel.
 
 Why this exists: under plain ``vmap`` the backward scan's stage matrices are
-``[B, nx, nx]`` and XLA tiles the *tiny minor dims* onto the TPU's (8, 128)
-vector tiles — 16 useful elements per 1024-element tile (1.6 % utilization),
-with every intermediate round-tripping HBM in padded form.  Profiling showed
-the backward pass at ~23 ms for B=4096, N=100 (80 % of the solve).
+``[B, nx, nx]``, so the tiny matrix dims are the minor (fastest) axes and
+every intermediate is a padded, strided tile of a few useful elements.
 
-TPU-first layout: put the batch on the lanes.  Every stage quantity is
-stored ``[..., small_dims..., B]`` so the minor two dims of every
-intermediate are (small_dim, B) — full lanes, 50-100 % sublanes — and the
-small-matrix contractions unroll into elementwise VPU ops over the batch.
+Batch-minor layout: put the batch on the minor axis.  Every stage quantity
+is stored ``[..., small_dims..., B]``, so every intermediate is contiguous
+and coalesced over the batch, and the small-matrix contractions unroll into
+elementwise ops over the batch.
 This is the "single fused, batch-wide kernel" shape SURVEY.md §7 calls the
 central engineering risk of the port.
 
@@ -192,11 +190,10 @@ def boxqp_stacked(H, g, lower, upper, x0, config):
 
         pre_exit = improve_done | all_clamped | (~chol_ok) | small_grad | bad_dir
 
-        # Armijo backtracking (BoxQP.h:293-309), two-phase (round 3): a
+        # Armijo backtracking (BoxQP.h:293-309), two-phase: a
         # PARALLEL head over the first ls_block steps — in practice every
-        # accept lands there (the r2 all-105-candidate version cost ~15 MB
-        # of [K,n,n,B] broadcast traffic per QP iteration, which made the
-        # boxed backward 22x the unconstrained one) — then a masked
+        # accept lands there (evaluating all 105 candidates would stream
+        # [K,n,n,B] broadcasts per QP iteration) — then a masked
         # sequential while_loop tail for the rare lane that backtracks
         # deeper, preserving exact first-accept/exhaustion semantics over
         # the full schedule.  The candidates are the same clip(x + 0.6^j d)
@@ -222,8 +219,8 @@ def boxqp_stacked(H, g, lower, upper, x0, config):
         stop = accept | below                                # [K1, B]
         any_stop = jnp.any(stop, axis=0)                     # [B]
         # first stopping index per lane; select via one-hot reduction —
-        # take_along_axis lowers to a gather, which is far slower than a
-        # K-sized masked reduce on TPU.  A lane with no stop takes the
+        # take_along_axis lowers to a gather, where a K-sized masked
+        # reduce stays elementwise.  A lane with no stop takes the
         # LAST-visited candidate (K1-1): if the head covers the whole
         # schedule that is the reference's exhaustion result (the last —
         # tiniest — candidate is accepted, BoxQP.h:298-309); otherwise the
@@ -236,7 +233,7 @@ def boxqp_stacked(H, g, lower, upper, x0, config):
         # a below-min_step stop is exhaustion REGARDLESS of its Armijo
         # result: the reference breaks with retval 2 at step < min_step
         # without consulting Armijo (BoxQP.h:304-308), and boxqp_solve's
-        # hit_min flag matches — so must this kernel (ADVICE r4 #2)
+        # hit_min flag matches — so must this kernel
         ls_exhausted = jnp.sum(below * onehot, axis=0) > 0.5
         if K1 == n_ls:
             # head covered the whole schedule: no-stop lanes exhausted it
@@ -267,7 +264,7 @@ def boxqp_stacked(H, g, lower, upper, x0, config):
                 objt = jnp.where(upd, obj1, objt)
                 stop1 = (acc1 | bel1) & ~done
                 # below-min_step stop = exhaustion regardless of Armijo
-                # (BoxQP.h:304-308; ADVICE r4 #2)
+                # (BoxQP.h:304-308)
                 exh = exh | (stop1 & bel1)
                 return (step, xt, objt, exh, k + 1, done | stop1)
 

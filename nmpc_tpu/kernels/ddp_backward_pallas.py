@@ -1,39 +1,36 @@
-"""Pallas TPU kernel: fully-fused DDP backward pass.
+"""Pallas kernel (Triton route): fused DDP backward pass.
 
-One kernel program runs the ENTIRE backward Riccati recursion
-(``DDPSolver.hpp:343-534``) for a block of SUB*128 batch lanes: the
-value-function carry (Vx, Vxx) lives in registers/VMEM across all N stages,
-every small-matrix contraction is unrolled to elementwise VPU ops on
-(SUB, 128) tiles, and nothing round-trips HBM between stages — the XLA
-stacked version (kernels/ddp_backward.py) still materializes each scan
-step's outputs.
+One program runs the whole backward Riccati recursion
+(``DDPSolver.hpp:343-534``) for a block of batch lanes: the value-function
+carry (Vx, Vxx) stays in registers across all N stages, every small-matrix
+contraction is unrolled into elementwise ops on (BLOCK,) lane tiles, and
+nothing round-trips device memory between stages.  The XLA stacked
+version (kernels/ddp_backward.py) is a ``lax.scan`` whose every stage is a
+loop trip of several small kernels over the batch.  Scaffolding (grid,
+padding, route) is shared with the other lane kernels in
+``kernels/lane_kernel.py``.
 
-Layout contract (matches the stacked solver's batch-minor layout):
-  inputs  Fx [N, nx, nx, B4, 128], ..., lam [B4, 128]
-  outputs ks [N, nu, B4, 128], Ks [N, nu, nx, B4, 128], dV [2, B4, 128],
-          ok [B4, 128] (float 0/1)
-with B = B4 * 128 and the grid tiling B4 into SUB-row blocks.
+Layout contract (the stacked solver's batch-minor layout):
+  inputs  Fx [N, nx, nx, B], ..., lam [B]
+  outputs ks [N, nu, B], Ks [N, nu, nx, B], dV [2, B], ok [B] (bool)
 
-Numerical semantics are identical to ``backward_stacked`` (same unrolled
-Cholesky with the Eigen-LLT pivot>0 failure rule); parity is tested.
+Numerical semantics are identical to ``backward_stacked`` /
+``backward_stacked_boxed`` (same unrolled Cholesky with the Eigen-LLT
+pivot>0 failure rule, same BoxQP); parity is tested.
 """
 
 from __future__ import annotations
 
-import functools
-
-import jax
 import jax.numpy as jnp
 from jax import lax
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from nmpc_tpu.core.types import DDPConfig
+from nmpc_tpu.kernels.lane_kernel import lane_call
 
 
 def _mm_t(A, B, n, m, k):
     """Unrolled matmul of tile-matrices: A, B are [n][m] / [m][k] nested
-    lists of (SUB, 128) tiles -> [n][k] list."""
+    lists of (BLOCK,) tiles -> [n][k] list."""
     return [[sum(A[i][l] * B[l][j] for l in range(m)) for j in range(k)]
             for i in range(n)]
 
@@ -48,7 +45,7 @@ def _transpose_t(A, n, m):
 
 def _chol_t(A, n):
     """Unrolled Cholesky on tile-matrices; returns (L, ok_tile as f32 0/1 —
-    bool vectors can't live in Mosaic loop carries)."""
+    the kernels keep every mask as a float tile)."""
     ok = None
     L = [[None] * n for _ in range(n)]
     for j in range(n):
@@ -87,31 +84,9 @@ def _chol_solve_t(L, B, n, m):
     return x
 
 
-def _field_offsets(nx: int, nu: int):
-    """Field offsets of the packed per-stage derivative buffer.
-
-    Roofline lever (VERDICT r2 item #5): the unpacked kernel issues 7
-    separate DMAs per stage (the smallest is nu*SUB*128*4 = 8 KB at the
-    headline shape), which makes it DMA-issue-latency-bound at 34% of the
-    HBM roofline (measured 1.53 us/stage vs 0.45 us of pure streaming).
-    Packing all stage fields into one [N, F, B4, 128] buffer turns that
-    into a single 368 KB DMA per stage.  The pack itself is free: the
-    solver jit builds the packed buffer straight out of the derivative
-    sweep (XLA concatenate-fuses the producers into it), so the bytes
-    written to HBM are the same as for the 7 separate arrays.
-    """
-    off, out = 0, {}
-    for name, sz in (("Fx", nx * nx), ("Fu", nx * nu), ("Lx", nx),
-                     ("Lu", nu), ("Lxx", nx * nx), ("Luu", nu * nu),
-                     ("Lxu", nx * nu)):
-        out[name] = off
-        off += sz
-    return out, off
-
-
 def _riccati_stage(config: DDPConfig, nx, nu, lam, zeros, fields, carry):
     """One backward Riccati stage on loaded tile-fields (shared by the
-    packed and unpacked kernels).  ``fields`` maps name -> tile-matrix /
+    sweep-fed and remat kernels).  ``fields`` maps name -> tile-matrix /
     tile-vector; ``carry`` is (Vx, Vxx, dV0, dV1, ok).  Returns
     (new_carry, kvec, K)."""
     reg1 = config.reg_type == 1
@@ -180,12 +155,12 @@ def _riccati_stage(config: DDPConfig, nx, nu, lam, zeros, fields, carry):
 
 
 def _boxqp_t(H, gq, lo, hi, x0, nu, bq, zeros):
-    """Projected-Newton BoxQP on (SUB, 128) tiles — the fused in-kernel
+    """Projected-Newton BoxQP on (BLOCK,) tiles — the fused in-kernel
     analog of ``kernels/ddp_backward.boxqp_stacked`` (reference
-    ``BoxQP.h:141-347``), with IDENTICAL semantics (round 4):
+    ``BoxQP.h:141-347``), with IDENTICAL semantics:
 
     - QP iterations: ``min(unroll_iter, max_iter)`` iterations unrolled
-      (pure VPU code, no loop dispatch), then a masked ``lax.while_loop``
+      (straight-line code, no loop), then a masked ``lax.while_loop``
       continuation up to ``max_iter`` for the rare lanes needing more —
       the same unroll+continuation split as ``boxqp_stacked``.  A lane
       reaching ``max_iter`` exits MAX_ITER = success, like the stacked
@@ -308,8 +283,7 @@ def _boxqp_t(H, gq, lo, hi, x0, nu, bq, zeros):
             obja = sel(take, objc, obja)
             if below:
                 # below-min_step stop = exhaustion regardless of Armijo
-                # (BoxQP.h:304-308; matches boxqp_stacked / boxqp_solve —
-                # ADVICE r4 #2)
+                # (BoxQP.h:304-308; matches boxqp_stacked / boxqp_solve —)
                 exh = jnp.maximum(exh, take)
             found = jnp.maximum(found, stop)
             xl, objl = xc, objc
@@ -342,7 +316,9 @@ def _boxqp_t(H, gq, lo, hi, x0, nu, bq, zeros):
                 objc = obj_of(xc)
                 acc = f01((objc - old_obj) / (step * sdg)
                           >= bq.armijo_param)
-                belf = f01(step < np.float32(bq.min_step))
+                # vector predicate: a scalar-predicate select does not
+                # lower on the Triton route
+                belf = f01(step * ones < np.float32(bq.min_step))
                 upd = 1.0 - done
                 # track the last-visited candidate for every undone lane:
                 # its stop candidate when it stops, the schedule's last
@@ -352,7 +328,7 @@ def _boxqp_t(H, gq, lo, hi, x0, nu, bq, zeros):
                 obja_t = sel(upd, objc, obja_t)
                 stopf = jnp.maximum(acc, belf) * upd
                 # below-min_step stop = exhaustion regardless of Armijo
-                # (BoxQP.h:304-308; ADVICE r4 #2)
+                # (BoxQP.h:304-308)
                 exh_t = jnp.maximum(exh_t, stopf * belf)
                 done = jnp.maximum(done, stopf)
                 return (k + 1, step, done, exh_t, obja_t, *xt)
@@ -508,729 +484,107 @@ def _riccati_stage_boxed(config: DDPConfig, nx, nu, lam, zeros, fields,
     return ((Vx_new, Vxx_sym, dV0, dV1, ok * ok_qp, kvec), kvec, K)
 
 
-def _make_kernel_chunked(config: DDPConfig, nx: int, nu: int, N: int,
-                         SUB: int, C: int):
-    """Stage-chunked DMA kernel: 7 DMAs per C-stage chunk instead of per
-    stage.
-
-    Roofline lever, round 3: the per-stage kernel is DMA-issue-latency
-    bound (measured 49.5% of the HBM roofline at the headline shape; the
-    smallest of its 7 per-stage DMAs is 8 KB).  Packing the fields into one
-    buffer on the host side LOSES end-to-end (the concatenate costs two
-    extra HBM passes — see ``backward_pallas``), so instead each DMA keeps
-    its own field buffer but fetches C stages at once: same bytes, same
-    input layout, C× fewer DMA issues.  Double-buffering moves to chunk
-    granularity (prefetch chunk c+1 while stages of chunk c compute), which
-    also gives the prefetch C stages of compute to hide under.
-    """
-    n_chunks = N // C
-
-    def kernel(Fx_hbm, Fu_hbm, Lx_hbm, Lu_hbm, Lxx_hbm, Luu_hbm, Lxu_hbm,
-               VxT_ref, VxxT_ref, lam_ref,
-               ks_ref, Ks_ref, dV_ref, ok_ref,
-               Fx_s, Fu_s, Lx_s, Lu_s, Lxx_s, Luu_s, Lxu_s, sems):
-        g = pl.program_id(0)
-        b0 = g * SUB
-        lam = lam_ref[:, :]
-
-        hbm = [Fx_hbm, Fu_hbm, Lx_hbm, Lu_hbm, Lxx_hbm, Luu_hbm, Lxu_hbm]
-        scr = [Fx_s, Fu_s, Lx_s, Lu_s, Lxx_s, Luu_s, Lxu_s]
-
-        def chunk_dmas(slot, c):
-            # chunk c covers stages [N-(c+1)*C, N-c*C), consumed high->low
-            base = N - (c + 1) * C
-            out = []
-            for w, (h, s) in enumerate(zip(hbm, scr)):
-                if h.ndim == 5:
-                    src = h.at[pl.ds(base, C), :, :, pl.ds(b0, SUB), :]
-                else:
-                    src = h.at[pl.ds(base, C), :, pl.ds(b0, SUB), :]
-                out.append(pltpu.make_async_copy(src, s.at[slot],
-                                                 sems.at[w, slot]))
-            return out
-
-        for d in chunk_dmas(0, 0):
-            d.start()
-
-        def load_mat(ref, slot, idx, n, m):
-            return [[ref[slot, idx, a, b] for b in range(m)]
-                    for a in range(n)]
-
-        def load_vec(ref, slot, idx, n):
-            return [ref[slot, idx, a] for a in range(n)]
-
-        Vx = [VxT_ref[a] for a in range(nx)]
-        Vxx = [[VxxT_ref[a, b] for b in range(nx)] for a in range(nx)]
-
-        zeros = jnp.zeros_like(lam)
-        carry0 = (Vx, Vxx, zeros, zeros, jnp.ones_like(lam))
-
-        def body(j, carry):
-            i = N - 1 - j
-            c = j // C
-            pos = j - c * C
-            slot = lax.rem(c, 2)
-            idx = C - 1 - pos            # position of stage i inside chunk c
-
-            # at a chunk boundary: prefetch the next chunk into the other
-            # slot (its previous occupant, chunk c-1, is fully consumed),
-            # then wait for this chunk's data
-            @pl.when((pos == 0) & (c + 1 < n_chunks))
-            def _():
-                for d in chunk_dmas(lax.rem(c + 1, 2), c + 1):
-                    d.start()
-
-            @pl.when(pos == 0)
-            def _():
-                for d in chunk_dmas(slot, c):
-                    d.wait()
-
-            fields = {
-                "Fx": load_mat(Fx_s, slot, idx, nx, nx),
-                "Fu": load_mat(Fu_s, slot, idx, nx, nu),
-                "Lx": load_vec(Lx_s, slot, idx, nx),
-                "Lu": load_vec(Lu_s, slot, idx, nu),
-                "Lxx": load_mat(Lxx_s, slot, idx, nx, nx),
-                "Luu": load_mat(Luu_s, slot, idx, nu, nu),
-                "Lxu": load_mat(Lxu_s, slot, idx, nx, nu),
-            }
-            new_carry, kvec, K = _riccati_stage(
-                config, nx, nu, lam, zeros, fields, carry)
-
-            for a in range(nu):
-                ks_ref[i, a] = kvec[a]
-                for b in range(nx):
-                    Ks_ref[i, a, b] = K[a][b]
-
-            return new_carry
-
-        Vx, Vxx, dV0, dV1, ok = lax.fori_loop(0, N, body, carry0)
-        dV_ref[0] = dV0
-        dV_ref[1] = dV1
-        ok_ref[:, :] = ok
-
-    return kernel
-
-
-def _choose_chunk(N: int, B4: int, out_floats: int, F: int):
-    """Pick (C, SUB) for the chunked kernel: maximize SUB*C (total DMA
-    issues scale as B4*N*7/(SUB*C)) under the VMEM budget, tie-breaking
-    toward larger SUB (fewer grid steps)."""
-    budget = 11 * 1024 * 1024
-    # Mosaic: the second-to-last block dim (SUB) must be a multiple of 8 or
-    # the full array dim B4
-    subs = [B4] + [s for s in (512, 256, 128, 64, 32, 16, 8)
-                   if s < B4 and B4 % s == 0]
-    if B4 < 8:
-        subs = [B4]
-    best = None
-    for c in range(1, min(N, 32) + 1):
-        if N % c:
-            continue
-        for s in subs:
-            if s * 128 * 4 * (2 * out_floats + 2 * c * F) <= budget:
-                key = (s * c, s)
-                if best is None or key > best[:2]:
-                    best = (s * c, s, c)
-                break
-    if best is None:
-        # degrade SUB through the LEGAL set (multiples of 8 or B4 itself —
-        # the Mosaic block rule) to the smallest footprint at C=1; if even
-        # that overflows the budget nothing fits and the caller's
-        # pallas_call reports it (this chunked path is an opt-in
-        # experiment; `backward_pallas`'s default stage kernel has its own
-        # chooser)
-        for sub in sorted(subs):
-            if sub * 128 * 4 * (2 * out_floats + 2 * F) <= budget:
-                return 1, sub
-        return 1, min(subs)
-    return best[2], best[1]
-
-
-@functools.partial(jax.jit, static_argnums=(0, 1, 2, 3))
-def _backward_pallas_call_chunked(config: DDPConfig, nx, nu, N,
-                                  Fx, Fu, Lx, Lu, Lxx, Luu, Lxu,
-                                  VxT, VxxT, lam):
-    """Chunked-DMA variant of ``_backward_pallas_call`` (same signature)."""
-    B4 = lam.shape[0]
-    dtype = Fx.dtype
-    out_floats = N * (nu + nu * nx)
-    F = 2 * nx * nx + 2 * nx * nu + nx + nu + nu * nu
-    C, SUB = _choose_chunk(N, B4, out_floats, F)
-    grid = (B4 // SUB,)
-
-    def vspec(*dims):
-        block = tuple(dims) + (SUB, 128)
-        nlead = len(dims)
-        return pl.BlockSpec(block,
-                            lambda i, nlead=nlead: (0,) * nlead + (i, 0),
-                            memory_space=pltpu.VMEM)
-
-    kernel = _make_kernel_chunked(config, nx, nu, N, SUB, C)
-    out_shape = (
-        jax.ShapeDtypeStruct((N, nu, B4, 128), dtype),
-        jax.ShapeDtypeStruct((N, nu, nx, B4, 128), dtype),
-        jax.ShapeDtypeStruct((2, B4, 128), dtype),
-        jax.ShapeDtypeStruct((B4, 128), jnp.float32),
-    )
-    out_specs = (vspec(N, nu), vspec(N, nu, nx), vspec(2), vspec())
-    in_specs = [pl.BlockSpec(memory_space=pl.ANY)] * 7 + [
-        vspec(nx), vspec(nx, nx), vspec()]
-    scratch = [
-        pltpu.VMEM((2, C, nx, nx, SUB, 128), dtype),   # Fx
-        pltpu.VMEM((2, C, nx, nu, SUB, 128), dtype),   # Fu
-        pltpu.VMEM((2, C, nx, SUB, 128), dtype),       # Lx
-        pltpu.VMEM((2, C, nu, SUB, 128), dtype),       # Lu
-        pltpu.VMEM((2, C, nx, nx, SUB, 128), dtype),   # Lxx
-        pltpu.VMEM((2, C, nu, nu, SUB, 128), dtype),   # Luu
-        pltpu.VMEM((2, C, nx, nu, SUB, 128), dtype),   # Lxu
-        pltpu.SemaphoreType.DMA((7, 2)),
-    ]
-
-    ks, Ks, dV, okf = pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=in_specs,
-        out_specs=out_specs,
-        out_shape=out_shape,
-        scratch_shapes=scratch,
-    )(Fx, Fu, Lx, Lu, Lxx, Luu, Lxu, VxT, VxxT, lam)
-    return ks, Ks, dV, okf
-
-
-def _make_kernel_packed(config: DDPConfig, nx: int, nu: int, N: int,
-                        SUB: int):
-    """Packed-input kernel: one DMA per stage from the packed buffer."""
-    OFF, F = _field_offsets(nx, nu)
-
-    def kernel(P_hbm, VxT_ref, VxxT_ref, lam_ref,
-               ks_ref, Ks_ref, dV_ref, ok_ref, P_s, sems):
-        g = pl.program_id(0)
-        b0 = g * SUB
-        lam = lam_ref[:, :]
-
-        def stage_dma(slot, i):
-            return pltpu.make_async_copy(
-                P_hbm.at[i, :, pl.ds(b0, SUB), :], P_s.at[slot],
-                sems.at[slot])
-
-        stage_dma(0, N - 1).start()
-
-        def load_mat(slot, name, n, m):
-            o = OFF[name]
-            return [[P_s[slot, o + a * m + b] for b in range(m)]
-                    for a in range(n)]
-
-        def load_vec(slot, name, n):
-            o = OFF[name]
-            return [P_s[slot, o + a] for a in range(n)]
-
-        Vx = [VxT_ref[a] for a in range(nx)]
-        Vxx = [[VxxT_ref[a, b] for b in range(nx)] for a in range(nx)]
-
-        zeros = jnp.zeros_like(lam)
-        dV0 = zeros
-        dV1 = zeros
-        ok = jnp.ones_like(lam)
-
-        carry0 = (Vx, Vxx, dV0, dV1, ok)
-
-        def body(j, carry):
-            i = N - 1 - j
-            slot = lax.rem(j, 2)
-            next_slot = lax.rem(j + 1, 2)
-
-            @pl.when(j + 1 < N)
-            def _():
-                stage_dma(next_slot, i - 1).start()
-
-            stage_dma(slot, i).wait()
-
-            fields = {
-                "Fx": load_mat(slot, "Fx", nx, nx),
-                "Fu": load_mat(slot, "Fu", nx, nu),
-                "Lx": load_vec(slot, "Lx", nx),
-                "Lu": load_vec(slot, "Lu", nu),
-                "Lxx": load_mat(slot, "Lxx", nx, nx),
-                "Luu": load_mat(slot, "Luu", nu, nu),
-                "Lxu": load_mat(slot, "Lxu", nx, nu),
-            }
-            new_carry, kvec, K = _riccati_stage(
-                config, nx, nu, lam, zeros, fields, carry)
-
-            for a in range(nu):
-                ks_ref[i, a] = kvec[a]
-                for b in range(nx):
-                    Ks_ref[i, a, b] = K[a][b]
-
-            return new_carry
-
-        Vx, Vxx, dV0, dV1, ok = lax.fori_loop(0, N, body, carry0)
-        dV_ref[0] = dV0
-        dV_ref[1] = dV1
-        ok_ref[:, :] = ok
-
-    return kernel
-
-
-def _make_kernel(config: DDPConfig, nx: int, nu: int, N: int, SUB: int):
-    """Kernel with manual double-buffered DMA of per-stage derivative slices
-    from HBM: whole-horizon VMEM blocks don't fit (Pallas double-buffers
-    grid blocks, ~2x the data), so stage data streams in two slots while the
-    value-function carry stays resident."""
-
-    def kernel(Fx_hbm, Fu_hbm, Lx_hbm, Lu_hbm, Lxx_hbm, Luu_hbm, Lxu_hbm,
-               VxT_ref, VxxT_ref, lam_ref,
-               ks_ref, Ks_ref, dV_ref, ok_ref,
-               Fx_s, Fu_s, Lx_s, Lu_s, Lxx_s, Luu_s, Lxu_s, sems):
-        g = pl.program_id(0)
-        b0 = g * SUB
-        lam = lam_ref[:, :]
-
-        hbm = [Fx_hbm, Fu_hbm, Lx_hbm, Lu_hbm, Lxx_hbm, Luu_hbm, Lxu_hbm]
-        scr = [Fx_s, Fu_s, Lx_s, Lu_s, Lxx_s, Luu_s, Lxu_s]
-
-        def stage_dmas(slot, i):
-            out = []
-            for w, (h, s) in enumerate(zip(hbm, scr)):
-                nd = h.ndim
-                if nd == 5:
-                    src = h.at[i, :, :, pl.ds(b0, SUB), :]
-                else:
-                    src = h.at[i, :, pl.ds(b0, SUB), :]
-                out.append(pltpu.make_async_copy(src, s.at[slot],
-                                                 sems.at[w, slot]))
-            return out
-
-        # warm-up: stage N-1 into slot 0
-        for d in stage_dmas(0, N - 1):
-            d.start()
-
-        def load_mat(ref, slot, n, m):
-            return [[ref[slot, a, b] for b in range(m)] for a in range(n)]
-
-        def load_vec(ref, slot, n):
-            return [ref[slot, a] for a in range(n)]
-
-        Vx = [VxT_ref[a] for a in range(nx)]
-        Vxx = [[VxxT_ref[a, b] for b in range(nx)] for a in range(nx)]
-
-        zeros = jnp.zeros_like(lam)
-        dV0 = zeros
-        dV1 = zeros
-        ok = jnp.ones_like(lam)  # f32 0/1 mask (bool carries won't legalize)
-
-        carry0 = (Vx, Vxx, dV0, dV1, ok)
-
-        def body(j, carry):
-            i = N - 1 - j
-            slot = lax.rem(j, 2)
-            next_slot = lax.rem(j + 1, 2)
-
-            # prefetch stage i-1 while waiting on stage i
-            @pl.when(j + 1 < N)
-            def _():
-                for d in stage_dmas(next_slot, i - 1):
-                    d.start()
-
-            for d in stage_dmas(slot, i):
-                d.wait()
-
-            fields = {
-                "Fx": load_mat(Fx_s, slot, nx, nx),
-                "Fu": load_mat(Fu_s, slot, nx, nu),
-                "Lx": load_vec(Lx_s, slot, nx),
-                "Lu": load_vec(Lu_s, slot, nu),
-                "Lxx": load_mat(Lxx_s, slot, nx, nx),
-                "Luu": load_mat(Luu_s, slot, nu, nu),
-                "Lxu": load_mat(Lxu_s, slot, nx, nu),
-            }
-            new_carry, kvec, K = _riccati_stage(
-                config, nx, nu, lam, zeros, fields, carry)
-
-            for a in range(nu):
-                ks_ref[i, a] = kvec[a]
-                for b in range(nx):
-                    Ks_ref[i, a, b] = K[a][b]
-
-            return new_carry
-
-        Vx, Vxx, dV0, dV1, ok = lax.fori_loop(0, N, body, carry0)
-        dV_ref[0] = dV0
-        dV_ref[1] = dV1
-        ok_ref[:, :] = ok
-
-    return kernel
-
-
-@functools.partial(jax.jit, static_argnums=(0, 1, 2, 3))
-def _backward_pallas_call(config: DDPConfig, nx, nu, N,
-                          Fx, Fu, Lx, Lu, Lxx, Luu, Lxu, VxT, VxxT, lam):
-    """Inputs in batch-minor layout with B reshaped to (B4, 128)."""
-    B4 = lam.shape[0]
-    dtype = Fx.dtype
-    # VMEM per program: outputs (double-buffered by the pipeline) + 2 stage
-    # slots + carry. Choose SUB so that ~2x outputs + slots stay well under
-    # the 16 MB budget.
-    out_floats = N * (nu + nu * nx)                       # ks + Ks per lane
-    slot_floats = 2 * (2 * nx * nx + 2 * nx * nu + nx + nu + nu * nu)
-    budget = 11 * 1024 * 1024
-    SUB = B4
-    while SUB > 1 and SUB * 128 * 4 * (2 * out_floats + slot_floats) > budget:
-        SUB //= 2
-    while B4 % SUB != 0:
-        SUB //= 2
-    grid = (B4 // SUB,)
-
-    def vspec(*dims):
-        block = tuple(dims) + (SUB, 128)
-        nlead = len(dims)
-        return pl.BlockSpec(block,
-                            lambda i, nlead=nlead: (0,) * nlead + (i, 0),
-                            memory_space=pltpu.VMEM)
-
-    def hbm_spec():
-        return pl.BlockSpec(memory_space=pl.ANY)
-
-    kernel = _make_kernel(config, nx, nu, N, SUB)
-    out_shape = (
-        jax.ShapeDtypeStruct((N, nu, B4, 128), dtype),
-        jax.ShapeDtypeStruct((N, nu, nx, B4, 128), dtype),
-        jax.ShapeDtypeStruct((2, B4, 128), dtype),
-        jax.ShapeDtypeStruct((B4, 128), jnp.float32),
-    )
-    out_specs = (vspec(N, nu), vspec(N, nu, nx), vspec(2), vspec())
-    in_specs = [hbm_spec()] * 7 + [vspec(nx), vspec(nx, nx), vspec()]
-    scratch = [
-        pltpu.VMEM((2, nx, nx, SUB, 128), dtype),   # Fx
-        pltpu.VMEM((2, nx, nu, SUB, 128), dtype),   # Fu
-        pltpu.VMEM((2, nx, SUB, 128), dtype),       # Lx
-        pltpu.VMEM((2, nu, SUB, 128), dtype),       # Lu
-        pltpu.VMEM((2, nx, nx, SUB, 128), dtype),   # Lxx
-        pltpu.VMEM((2, nu, nu, SUB, 128), dtype),   # Luu
-        pltpu.VMEM((2, nx, nu, SUB, 128), dtype),   # Lxu
-        pltpu.SemaphoreType.DMA((7, 2)),
-    ]
-
-    ks, Ks, dV, okf = pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=in_specs,
-        out_specs=out_specs,
-        out_shape=out_shape,
-        scratch_shapes=scratch,
-    )(Fx, Fu, Lx, Lu, Lxx, Luu, Lxu, VxT, VxxT, lam)
-    return ks, Ks, dV, okf
-
-
-def _make_kernel_boxed(config: DDPConfig, nx: int, nu: int, N: int,
-                       SUB: int):
-    """Boxed-backward kernel: the unconstrained kernel's streaming layout
-    plus three per-stage bound fields (lower, upper, u) and the in-kernel
-    BoxQP of :func:`_boxqp_t`."""
-
-    def kernel(Fx_hbm, Fu_hbm, Lx_hbm, Lu_hbm, Lxx_hbm, Luu_hbm, Lxu_hbm,
-               lo_hbm, hi_hbm, u_hbm,
-               VxT_ref, VxxT_ref, lam_ref,
-               ks_ref, Ks_ref, dV_ref, ok_ref,
-               Fx_s, Fu_s, Lx_s, Lu_s, Lxx_s, Luu_s, Lxu_s,
-               lo_s, hi_s, u_s, sems):
-        g = pl.program_id(0)
-        b0 = g * SUB
-        lam = lam_ref[:, :]
-
-        hbm = [Fx_hbm, Fu_hbm, Lx_hbm, Lu_hbm, Lxx_hbm, Luu_hbm, Lxu_hbm,
-               lo_hbm, hi_hbm, u_hbm]
-        scr = [Fx_s, Fu_s, Lx_s, Lu_s, Lxx_s, Luu_s, Lxu_s,
-               lo_s, hi_s, u_s]
-
-        def stage_dmas(slot, i):
-            out = []
-            for w, (h, s) in enumerate(zip(hbm, scr)):
-                if h.ndim == 5:
-                    src = h.at[i, :, :, pl.ds(b0, SUB), :]
-                else:
-                    src = h.at[i, :, pl.ds(b0, SUB), :]
-                out.append(pltpu.make_async_copy(src, s.at[slot],
-                                                 sems.at[w, slot]))
-            return out
-
-        for d in stage_dmas(0, N - 1):
-            d.start()
-
-        def load_mat(ref, slot, n, m):
-            return [[ref[slot, a, b] for b in range(m)] for a in range(n)]
-
-        def load_vec(ref, slot, n):
-            return [ref[slot, a] for a in range(n)]
-
-        Vx = [VxT_ref[a] for a in range(nx)]
-        Vxx = [[VxxT_ref[a, b] for b in range(nx)] for a in range(nx)]
-
-        zeros = jnp.zeros_like(lam)
-        carry0 = (Vx, Vxx, zeros, zeros, jnp.ones_like(lam),
-                  [zeros for _ in range(nu)])   # k_next warm start = 0
-
-        def body(j, carry):
-            i = N - 1 - j
-            slot = lax.rem(j, 2)
-            next_slot = lax.rem(j + 1, 2)
-
-            @pl.when(j + 1 < N)
-            def _():
-                for d in stage_dmas(next_slot, i - 1):
-                    d.start()
-
-            for d in stage_dmas(slot, i):
-                d.wait()
-
-            fields = {
-                "Fx": load_mat(Fx_s, slot, nx, nx),
-                "Fu": load_mat(Fu_s, slot, nx, nu),
-                "Lx": load_vec(Lx_s, slot, nx),
-                "Lu": load_vec(Lu_s, slot, nu),
-                "Lxx": load_mat(Lxx_s, slot, nx, nx),
-                "Luu": load_mat(Luu_s, slot, nu, nu),
-                "Lxu": load_mat(Lxu_s, slot, nx, nu),
-                "lower": load_vec(lo_s, slot, nu),
-                "upper": load_vec(hi_s, slot, nu),
-                "u": load_vec(u_s, slot, nu),
-            }
+_DERIV_FIELDS = ("Fx", "Fu", "Lx", "Lu", "Lxx", "Luu", "Lxu")
+_BOUND_FIELDS = ("lower", "upper", "u")
+
+
+def load_mat(ref, i, n, m):
+    """Tile-matrix [n][m] of stage ``i`` from a [N, n, m, BLOCK] ref."""
+    return [[ref[i, a, b] for b in range(m)] for a in range(n)]
+
+
+def load_vec(ref, i, n):
+    """Tile-vector [n] of stage ``i`` from a [N, n, BLOCK] ref."""
+    return [ref[i, a] for a in range(n)]
+
+
+def riccati_loop(config: DDPConfig, nx, nu, N, boxed, stage_fields,
+                 VxT_ref, VxxT_ref, lam_ref, ks_ref, Ks_ref, dV_ref, ok_ref):
+    """The reversed stage loop shared by the sweep-fed and remat kernels:
+    ``stage_fields(i)`` returns stage i's Riccati fields as tiles."""
+    lam = lam_ref[...]
+    zeros = jnp.zeros_like(lam)
+    Vx = [VxT_ref[a] for a in range(nx)]
+    Vxx = [[VxxT_ref[a, b] for b in range(nx)] for a in range(nx)]
+    carry0 = (Vx, Vxx, zeros, zeros, jnp.ones_like(lam))
+    if boxed:
+        carry0 = carry0 + ([zeros for _ in range(nu)],)  # k_next warm start
+
+    def body(j, carry):
+        i = N - 1 - j
+        fields = stage_fields(i)
+        if boxed:
             new_carry, kvec, K = _riccati_stage_boxed(
                 config, nx, nu, lam, zeros, fields, carry)
+        else:
+            new_carry, kvec, K = _riccati_stage(
+                config, nx, nu, lam, zeros, fields, carry)
+        for a in range(nu):
+            ks_ref[i, a] = kvec[a]
+            for b in range(nx):
+                Ks_ref[i, a, b] = K[a][b]
+        return new_carry
 
-            for a in range(nu):
-                ks_ref[i, a] = kvec[a]
-                for b in range(nx):
-                    Ks_ref[i, a, b] = K[a][b]
-
-            return new_carry
-
-        Vx, Vxx, dV0, dV1, ok, _ = lax.fori_loop(0, N, body, carry0)
-        dV_ref[0] = dV0
-        dV_ref[1] = dV1
-        ok_ref[:, :] = ok
-
-    return kernel
+    out = lax.fori_loop(0, N, body, carry0)
+    dV_ref[0] = out[2]
+    dV_ref[1] = out[3]
+    ok_ref[...] = out[4]
 
 
-@functools.partial(jax.jit, static_argnums=(0, 1, 2, 3))
-def _backward_pallas_call_boxed(config: DDPConfig, nx, nu, N,
-                                Fx, Fu, Lx, Lu, Lxx, Luu, Lxu,
-                                lo, hi, u, VxT, VxxT, lam):
-    """Boxed variant of ``_backward_pallas_call``: three extra per-stage
-    bound inputs, same outputs."""
-    B4 = lam.shape[0]
-    dtype = Fx.dtype
-    out_floats = N * (nu + nu * nx)
-    slot_floats = 2 * (2 * nx * nx + 2 * nx * nu + nx + nu + nu * nu
-                       + 3 * nu)
-    budget = 11 * 1024 * 1024
-    SUB = B4
-    while SUB > 1 and SUB * 128 * 4 * (2 * out_floats + slot_floats) > budget:
-        SUB //= 2
-    while B4 % SUB != 0:
-        SUB //= 2
-    grid = (B4 // SUB,)
+def riccati_out_shapes(nx, nu, N, dtype):
+    return [((N, nu), dtype), ((N, nu, nx), dtype), ((2,), dtype),
+            ((), jnp.float32)]
 
-    def vspec(*dims):
-        block = tuple(dims) + (SUB, 128)
-        nlead = len(dims)
-        return pl.BlockSpec(block,
-                            lambda i, nlead=nlead: (0,) * nlead + (i, 0),
-                            memory_space=pltpu.VMEM)
 
-    kernel = _make_kernel_boxed(config, nx, nu, N, SUB)
-    out_shape = (
-        jax.ShapeDtypeStruct((N, nu, B4, 128), dtype),
-        jax.ShapeDtypeStruct((N, nu, nx, B4, 128), dtype),
-        jax.ShapeDtypeStruct((2, B4, 128), dtype),
-        jax.ShapeDtypeStruct((B4, 128), jnp.float32),
-    )
-    out_specs = (vspec(N, nu), vspec(N, nu, nx), vspec(2), vspec())
-    in_specs = [pl.BlockSpec(memory_space=pl.ANY)] * 10 + [
-        vspec(nx), vspec(nx, nx), vspec()]
-    scratch = [
-        pltpu.VMEM((2, nx, nx, SUB, 128), dtype),   # Fx
-        pltpu.VMEM((2, nx, nu, SUB, 128), dtype),   # Fu
-        pltpu.VMEM((2, nx, SUB, 128), dtype),       # Lx
-        pltpu.VMEM((2, nu, SUB, 128), dtype),       # Lu
-        pltpu.VMEM((2, nx, nx, SUB, 128), dtype),   # Lxx
-        pltpu.VMEM((2, nu, nu, SUB, 128), dtype),   # Luu
-        pltpu.VMEM((2, nx, nu, SUB, 128), dtype),   # Lxu
-        pltpu.VMEM((2, nu, SUB, 128), dtype),       # lower
-        pltpu.VMEM((2, nu, SUB, 128), dtype),       # upper
-        pltpu.VMEM((2, nu, SUB, 128), dtype),       # u
-        pltpu.SemaphoreType.DMA((10, 2)),
-    ]
+def _backward_call(config: DDPConfig, D, bounds, Vx_T, Vxx_T, lam, name):
+    N, nx = D.Fx.shape[0], D.Fx.shape[1]
+    nu = D.Fu.shape[2]
+    boxed = bounds is not None
+    names = _DERIV_FIELDS + (_BOUND_FIELDS if boxed else ())
+    arrays = list(D) + (list(bounds) if boxed else [])
+    shapes = {"Fx": (nx, nx), "Fu": (nx, nu), "Lx": (nx,), "Lu": (nu,),
+              "Lxx": (nx, nx), "Luu": (nu, nu), "Lxu": (nx, nu),
+              "lower": (nu,), "upper": (nu,), "u": (nu,)}
+    nf = len(names)
 
-    ks, Ks, dV, okf = pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=in_specs,
-        out_specs=out_specs,
-        out_shape=out_shape,
-        scratch_shapes=scratch,
-    )(Fx, Fu, Lx, Lu, Lxx, Luu, Lxu, lo, hi, u, VxT, VxxT, lam)
-    return ks, Ks, dV, okf
+    def kernel(*refs):
+        field_refs = dict(zip(names, refs[:nf]))
+        VxT_ref, VxxT_ref, lam_ref = refs[nf:nf + 3]
+
+        def stage_fields(i):
+            out = {}
+            for n in names:
+                s = shapes[n]
+                out[n] = (load_mat(field_refs[n], i, *s) if len(s) == 2
+                          else load_vec(field_refs[n], i, s[0]))
+            return out
+
+        riccati_loop(config, nx, nu, N, boxed, stage_fields,
+                     VxT_ref, VxxT_ref, lam_ref, *refs[nf + 3:])
+
+    ks, Ks, dV, okf = lane_call(
+        kernel, name=name, inputs=arrays + [Vx_T, Vxx_T, lam],
+        out_shapes=riccati_out_shapes(nx, nu, N, D.Fx.dtype))
+    return ks, Ks, dV, okf > 0.5
+
+
+def backward_pallas(config: DDPConfig, D, Vx_T, Vxx_T, lam):
+    """Drop-in for ``backward_stacked`` (same signature and batch-minor
+    layout, any B) backed by the fused kernel."""
+    return _backward_call(config, D, None, Vx_T, Vxx_T, lam,
+                          "ddp_backward")
 
 
 def backward_pallas_boxed(config: DDPConfig, D, bounds, Vx_T, Vxx_T, lam):
-    """Drop-in for ``backward_stacked_boxed`` (same batch-minor layout)
-    backed by the fused boxed Pallas kernel: the whole backward recursion
-    INCLUDING the per-stage projected-Newton BoxQP runs as one VPU
-    program, with the value-function carry and QP warm start resident in
-    VMEM (``DDPSolver.hpp:450-497`` + ``BoxQP.h:141-347``).
+    """Drop-in for ``backward_stacked_boxed`` backed by the fused boxed
+    kernel: the whole backward recursion INCLUDING the per-stage
+    projected-Newton BoxQP (``DDPSolver.hpp:450-497`` +
+    ``BoxQP.h:141-347``) runs as one program per lane block, with the
+    value-function carry and the QP warm start in registers.
 
-    Parity contract (round 4, pinned by tests/test_pallas_kernels.py):
-    the in-kernel BoxQP runs the SAME semantics as ``boxqp_stacked`` —
-    unrolled head + masked while-loop continuations for both the QP
-    iterations (to ``max_iter``) and the Armijo schedule (full schedule;
-    exhaustion takes the last-visited candidate) — so agreement is exact
-    in interpreter mode and within fp32 reassociation noise compiled on
-    chip (measured 2026-08-20, vertical-motion B=1024 N=100, default
-    BoxQP config: ks max err 1.3e-5 single backward; 18x faster than the
-    stacked boxed backward, 1.19x the unconstrained backward;
-    benchmarks/profile_boxed_ddp.py).
-    """
-    N, nx = D.Fx.shape[0], D.Fx.shape[1]
-    nu = D.Fu.shape[2]
-    B = lam.shape[-1]
-    assert B % 128 == 0, "pallas boxed backward requires B % 128 == 0"
-    B4 = B // 128
-
-    r = lambda a: a.reshape(a.shape[:-1] + (B4, 128))
-    ks, Ks, dV, okf = _backward_pallas_call_boxed(
-        config, nx, nu, N,
-        r(D.Fx), r(D.Fu), r(D.Lx), r(D.Lu), r(D.Lxx), r(D.Luu), r(D.Lxu),
-        r(bounds.lower), r(bounds.upper), r(bounds.u),
-        r(Vx_T), r(Vxx_T), r(lam))
-    unr = lambda a: a.reshape(a.shape[:-2] + (B,))
-    return unr(ks), unr(Ks), unr(dV), unr(okf) > 0.5
-
-
-@functools.partial(jax.jit, static_argnums=(0, 1, 2, 3))
-def _backward_pallas_call_packed(config: DDPConfig, nx, nu, N,
-                                 P, VxT, VxxT, lam):
-    """Packed-input variant: P is [N, F, B4, 128] (see ``_field_offsets``).
-    One DMA per stage instead of seven — the roofline lever that lifted the
-    kernel from 34% to its measured share of the HBM bound."""
-    B4 = lam.shape[0]
-    dtype = P.dtype
-    _, F = _field_offsets(nx, nu)
-    out_floats = N * (nu + nu * nx)                       # ks + Ks per lane
-    slot_floats = 2 * F
-    budget = 11 * 1024 * 1024
-    SUB = B4
-    while SUB > 1 and SUB * 128 * 4 * (2 * out_floats + slot_floats) > budget:
-        SUB //= 2
-    while B4 % SUB != 0:
-        SUB //= 2
-    grid = (B4 // SUB,)
-
-    def vspec(*dims):
-        block = tuple(dims) + (SUB, 128)
-        nlead = len(dims)
-        return pl.BlockSpec(block,
-                            lambda i, nlead=nlead: (0,) * nlead + (i, 0),
-                            memory_space=pltpu.VMEM)
-
-    kernel = _make_kernel_packed(config, nx, nu, N, SUB)
-    out_shape = (
-        jax.ShapeDtypeStruct((N, nu, B4, 128), dtype),
-        jax.ShapeDtypeStruct((N, nu, nx, B4, 128), dtype),
-        jax.ShapeDtypeStruct((2, B4, 128), dtype),
-        jax.ShapeDtypeStruct((B4, 128), jnp.float32),
-    )
-    out_specs = (vspec(N, nu), vspec(N, nu, nx), vspec(2), vspec())
-    in_specs = [pl.BlockSpec(memory_space=pl.ANY),
-                vspec(nx), vspec(nx, nx), vspec()]
-    scratch = [
-        pltpu.VMEM((2, F, SUB, 128), dtype),
-        pltpu.SemaphoreType.DMA((2,)),
-    ]
-
-    ks, Ks, dV, okf = pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=in_specs,
-        out_specs=out_specs,
-        out_shape=out_shape,
-        scratch_shapes=scratch,
-    )(P, VxT, VxxT, lam)
-    return ks, Ks, dV, okf
-
-
-def pack_derivs_pallas(D, B4):
-    """Assemble the packed [N, F, B4, 128] buffer from batch-minor stacked
-    derivatives.  Called inside the solver jit right after the derivative
-    sweep, so XLA fuses the sweep's producers into the concatenate and the
-    7 separate arrays never materialize."""
-    N = D.Fx.shape[0]
-    r = lambda a: a.reshape((N, -1, B4, 128))
-    return jnp.concatenate(
-        [r(D.Fx), r(D.Fu), r(D.Lx), r(D.Lu), r(D.Lxx), r(D.Luu), r(D.Lxu)],
-        axis=1)
-
-
-def backward_pallas(config: DDPConfig, D, Vx_T, Vxx_T, lam,
-                    packed: bool | None = None):
-    """Drop-in for ``backward_stacked`` (same signature/layout: batch-minor
-    with trailing axis B) backed by the fused Pallas kernel.
-
-    Requires B % 128 == 0 (the stacked solver pads/los falls back otherwise).
-
-    DMA modes (``NMPC_PALLAS_DMA`` env var, or the legacy ``packed`` kwarg):
-
-    - ``"stage"`` (default): 7 DMAs per stage, double-buffered.
-    - ``"chunked"``: 7 DMAs per C-stage chunk — same input layout and
-      bytes, C× fewer DMA *issues*.  Measured on chip (2026-08-20, B=4096
-      N=100 cart-pole): 426.7 µs vs 421.9 µs for stage — NO win, parity
-      exact (0.0).  Conclusion: the gap to the HBM roofline is NOT
-      DMA-issue count; each per-field slice is strided over the B4 axis
-      whenever SUB < B4, so a chunk DMA decomposes into the same row
-      descriptors as C per-stage DMAs.  Closing further would need the
-      batch-outermost layout (contiguous whole-chunk transfers), which
-      conflicts with the batch-minor contract of everything upstream.
-      Kept as a parity-pinned experiment.
-    - ``"packed"``: 1 DMA per stage from a host-packed buffer.  Measured on
-      chip (2026-08, benchmarks/roofline.py + /tmp A/B): packing at this
-      call boundary LOSES end-to-end (10.5 ms vs 6.5 ms per 10-iteration
-      solve at B=4096) because the derivative sweep's outputs are already
-      materialized, so the concatenate cannot fuse and costs two extra full
-      HBM passes per iteration — more than the DMA-issue savings.  Kept as
-      an experiment.
-    """
-    import os
-    if packed is None:
-        mode = os.environ.get("NMPC_PALLAS_DMA", "")
-        if not mode:
-            mode = ("packed"
-                    if os.environ.get("NMPC_PALLAS_PACKED", "0") == "1"
-                    else "stage")
-    else:
-        mode = "packed" if packed else "stage"
-    assert mode in ("stage", "packed", "chunked"), mode
-    N, nx = D.Fx.shape[0], D.Fx.shape[1]
-    nu = D.Fu.shape[2]
-    B = lam.shape[-1]
-    assert B % 128 == 0, "pallas backward requires B % 128 == 0"
-    B4 = B // 128
-
-    r = lambda a: a.reshape(a.shape[:-1] + (B4, 128))
-    if mode == "packed":
-        ks, Ks, dV, okf = _backward_pallas_call_packed(
-            config, nx, nu, N, pack_derivs_pallas(D, B4),
-            r(Vx_T), r(Vxx_T), r(lam))
-    elif mode == "chunked":
-        ks, Ks, dV, okf = _backward_pallas_call_chunked(
-            config, nx, nu, N,
-            r(D.Fx), r(D.Fu), r(D.Lx), r(D.Lu), r(D.Lxx), r(D.Luu),
-            r(D.Lxu), r(Vx_T), r(Vxx_T), r(lam))
-    else:
-        ks, Ks, dV, okf = _backward_pallas_call(
-            config, nx, nu, N,
-            r(D.Fx), r(D.Fu), r(D.Lx), r(D.Lu), r(D.Lxx), r(D.Luu),
-            r(D.Lxu), r(Vx_T), r(Vxx_T), r(lam))
-    unr = lambda a: a.reshape(a.shape[:-2] + (B,))
-    return unr(ks), unr(Ks), unr(dV), unr(okf) > 0.5
+    The in-kernel BoxQP runs the SAME semantics as ``boxqp_stacked``
+    (unrolled head plus masked while-loop continuations for the QP
+    iterations and the Armijo schedule), so agreement is exact in the
+    interpreter and at fp reassociation level compiled."""
+    return _backward_call(config, D, bounds, Vx_T, Vxx_T, lam,
+                          "ddp_backward_boxed")

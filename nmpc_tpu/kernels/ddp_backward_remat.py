@@ -1,58 +1,35 @@
-"""Pallas TPU kernel: whole-iteration fused DDP backward with in-kernel
-derivative REMATERIALIZATION.
+"""Pallas kernel (Triton route): whole-iteration fused DDP backward with
+in-kernel derivative REMATERIALIZATION.
 
-The round-4 fused backward (``ddp_backward_pallas.py``) is at its HBM
-bound — but the bound itself is set by the ~75 MB per-iteration stage
+The sweep-fed backward (``ddp_backward_pallas.py``) reads the per-stage
 derivative buffer (Fx, Fu, Lx, Lu, Lxx, Luu, Lxu) that the vmapped
-autodiff sweep writes and the kernel immediately re-reads.  This kernel
-removes that buffer entirely: it streams only the TRAJECTORY
-(x_i, u_i — (nx+nu) lane-tiles per stage instead of
-2nx² + 2nx·nu + nx + nu + nu² ≈ 46 at the cart-pole shape) and
-recomputes each stage's derivatives from (x_i, u_i) as it walks the
-horizon.  This fuses the reference's two hot loops —
-``DDPSolver.hpp:160-178`` (derivative sweep) and ``:343-534`` (backward
-recursion) — into ONE kernel program with the value-function carry
-resident in VMEM.
+autodiff sweep writes.  This kernel removes that buffer: it reads only the
+TRAJECTORY (x_i, u_i — nx + nu tiles per stage instead of
+2nx² + 2nx·nu + nx + nu + nu² ≈ 46 at the cart-pole shape) and recomputes
+each stage's derivatives from (x_i, u_i) as it walks the horizon, fusing
+the reference's two hot loops — ``DDPSolver.hpp:160-178`` (derivative
+sweep) and ``:343-534`` (backward recursion) — into one program with the
+value-function carry in registers.
 
 How the derivatives are computed in-kernel (kernels/tileval.py): the
-problem's dynamics-jvp / cost-gradient / gradient-jvp functions are
-traced ONCE at scalar shapes, dead-code-eliminated, and then the jaxprs
-are **interpreted on (SUB, 128) lane tiles** — every small-vector value
-becomes a flat list of tiles, transposes/slices are free re-indexing,
-model constants inline as python literals, and evaluating the jvp
-jaxprs with one-hot LITERAL seeds constant-folds into exactly the
-analytic partial-derivative expressions.  Designs measured and rejected
-first (2026-08-21, on chip, headline shape B=4096 N=100 cart-pole):
-
-* replaying the full ``_stage_derivs`` jaxpr under ``vmap`` inside the
-  kernel — the stacked [seeds, dims, SUB, 128] autodiff intermediates
-  demanded 33-74 MB of Mosaic scoped vmem and Mosaic compile time blew
-  up super-linearly in the block height (SUB=32 >10 min, SUB=1 15 s);
-* grid-over-stages layout (grid = (B-blocks, N), per-stage in/out
-  blocks, carry in scratch) — compiled and matched (3.6e-6) but paid
-  ~24 us per grid step of pipeline overhead (9.5 ms total);
-* fori_loop + manual DMA with the vmapped replay — compiled once the
-  operand/result VMEM promotion was budgeted, matched (3.6e-6), but ran
-  at 9.45 ms: vmap keeps small vectors 1-D and its batching rules force
-  Mosaic relayouts per op.  With the **tile interpreter** the identical
-  kernel with stubbed fields runs at 0.156 ms — the streaming + Riccati
-  framework itself is faster than the sweep-fed kernel (fewer bytes).
+problem's dynamics-jvp / cost-gradient / gradient-jvp functions are traced
+ONCE at scalar shapes, dead-code-eliminated, and the jaxprs are
+**interpreted on lane tiles** — every small-vector value becomes a flat
+list of tiles, transposes/slices are free re-indexing, model constants
+inline as python literals, and evaluating the jvp jaxprs with one-hot
+LITERAL seeds constant-folds into exactly the analytic partial-derivative
+expressions.
 
 Semantics contract: the same derivative math as
 ``_derivative_sweep_lanes`` (jvp columns of the same callables on the
 same (t_i, x_i, u_i) values; ``t_i = t0 + dt * i`` uses the same fp32
 ops as the sweep's ``t0 + dt * arange(N)``), followed by the same
-unrolled tile Riccati stage as ``backward_pallas`` (boxed: including
-the full-semantics in-kernel BoxQP ``_boxqp_t``).  Parity is pinned in
-interpreter mode by tests/test_pallas_kernels.py / tests/test_tileval.py
-and on-chip by benchmarks/parity_gate.py.
+unrolled tile Riccati stage as ``backward_pallas`` (boxed: including the
+in-kernel BoxQP).
 
-Eligibility (enforced by the solver's ``auto`` rule via
-:func:`remat_supported`): fp32, ``deriv_dtype == "same"``, first-order
-only, B % 128 == 0, and problem callbacks whose traces the tile
-interpreter supports (plain jnp algebra; no gathers/scans/big tables).
-Problems outside that set keep the round-4 sweep+kernel split
-(``backward_impl="pallas"``).
+Eligibility (:func:`remat_supported`): fp32, ``deriv_dtype == "same"``,
+first-order only, and problem callbacks whose traces the tile interpreter
+supports (plain jnp algebra; no gathers/scans/big tables).
 """
 
 from __future__ import annotations
@@ -61,13 +38,13 @@ import functools
 
 import jax
 import jax.numpy as jnp
-from jax import lax
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax._src.interpreters.partial_eval import dce_jaxpr_consts
+from jax.extend.core import ClosedJaxpr
 
 from nmpc_tpu.core.types import DDPConfig
-from nmpc_tpu.kernels.ddp_backward_pallas import (_riccati_stage,
-                                                  _riccati_stage_boxed)
+from nmpc_tpu.kernels.ddp_backward_pallas import (riccati_loop,
+                                                  riccati_out_shapes)
+from nmpc_tpu.kernels.lane_kernel import lane_call
 from nmpc_tpu.kernels.tileval import (TileVal, _Ctx, eval_jaxpr_tiles,
                                       jaxpr_tile_supported)
 
@@ -141,16 +118,10 @@ def _hoist(problem, which: str, nx: int, nu: int, dtype_name: str):
     # DCE before in-kernel interpretation: autodiff traces record large
     # dead primal computations (the raw cost-gradient-jvp trace is ~3x
     # its live size)
-    try:
-        from jax._src.interpreters.partial_eval import dce_jaxpr_consts
-        from jax.extend.core import ClosedJaxpr
-
-        new_jaxpr, used_c, used_args = dce_jaxpr_consts(
-            closed.jaxpr, [True] * len(closed.jaxpr.outvars))
-        consts = [c for c, u_ in zip(closed.consts, used_c) if u_]
-        closed = ClosedJaxpr(new_jaxpr, consts)
-    except ImportError:  # pragma: no cover — private API moved; no DCE
-        used_args = [True] * len(avals)
+    new_jaxpr, used_c, used_args = dce_jaxpr_consts(
+        closed.jaxpr, [True] * len(closed.jaxpr.outvars))
+    consts = [c for c, u_ in zip(closed.consts, used_c) if u_]
+    closed = ClosedJaxpr(new_jaxpr, consts)
     return closed, tuple(used_args), tree, len(closed.jaxpr.eqns)
 
 
@@ -197,7 +168,7 @@ def _stage_fields_tile(problem, groups, ctx, t, x, u, nx: int, nu: int,
     """Rematerialize one stage's Riccati fields from tile LISTS
     x (nx tiles), u (nu tiles) via the tile interpreter.  Field entries
     may be python literals (folded constants) — downstream jnp arithmetic
-    broadcasts them and Mosaic constant-folds."""
+    broadcasts them and the compiler constant-folds."""
     tv = lambda shape, elems: TileVal(shape, dtype, elems)
     t_v = tv((), [t])
     x_v = tv((nx,), x)
@@ -286,150 +257,6 @@ def _stage_fields_tile(problem, groups, ctx, t, x, u, nx: int, nu: int,
     return fields
 
 
-def _make_kernel_remat(problem, config: DDPConfig, nx: int, nu: int,
-                       N: int, SUB: int, boxed: bool, groups):
-    """Streaming layout of ``ddp_backward_pallas._make_kernel``: manual
-    double-buffered per-stage DMA of (x_i, u_i) inside one fori_loop
-    program, fields tile-interpreted in-kernel."""
-    dt = float(problem.dt)
-
-    def kernel(xs_hbm, us_hbm, VxT_ref, VxxT_ref, lam_ref, t0_ref,
-               ks_ref, Ks_ref, dV_ref, ok_ref, x_s, u_s, sems):
-        g = pl.program_id(0)
-        b0 = g * SUB
-        lam = lam_ref[:, :]
-        t0 = t0_ref[0, 0]
-        dtype = lam.dtype
-        ctx = _Ctx()   # shared CSE memo: primals unify across jvp columns
-
-        def stage_dmas(slot, i):
-            return [
-                pltpu.make_async_copy(
-                    xs_hbm.at[i, :, pl.ds(b0, SUB), :], x_s.at[slot],
-                    sems.at[0, slot]),
-                pltpu.make_async_copy(
-                    us_hbm.at[i, :, pl.ds(b0, SUB), :], u_s.at[slot],
-                    sems.at[1, slot]),
-            ]
-
-        for d in stage_dmas(0, N - 1):
-            d.start()
-
-        Vx = [VxT_ref[a] for a in range(nx)]
-        Vxx = [[VxxT_ref[a, b] for b in range(nx)] for a in range(nx)]
-        zeros = jnp.zeros_like(lam)
-        if boxed:
-            carry0 = (Vx, Vxx, zeros, zeros, jnp.ones_like(lam),
-                      [zeros for _ in range(nu)])   # k_next warm start = 0
-        else:
-            carry0 = (Vx, Vxx, zeros, zeros, jnp.ones_like(lam))
-
-        def body(j, carry):
-            i = N - 1 - j
-            slot = lax.rem(j, 2)
-            next_slot = lax.rem(j + 1, 2)
-
-            @pl.when(j + 1 < N)
-            def _():
-                for d in stage_dmas(next_slot, i - 1):
-                    d.start()
-
-            for d in stage_dmas(slot, i):
-                d.wait()
-
-            # same fp32 ops as the sweep's t0 + dt * arange(N)
-            t_i = t0 + jnp.float32(dt) * i.astype(jnp.float32)
-            x_t = [x_s[slot, a] for a in range(nx)]
-            u_t = [u_s[slot, a] for a in range(nu)]
-            fields = _stage_fields_tile(problem, groups, ctx, t_i, x_t,
-                                        u_t, nx, nu, boxed, dtype)
-            if boxed:
-                new_carry, kvec, K = _riccati_stage_boxed(
-                    config, nx, nu, lam, zeros, fields, carry)
-            else:
-                new_carry, kvec, K = _riccati_stage(
-                    config, nx, nu, lam, zeros, fields, carry)
-
-            for a in range(nu):
-                ks_ref[i, a] = kvec[a]
-                for b in range(nx):
-                    Ks_ref[i, a, b] = K[a][b]
-
-            return new_carry
-
-        out = lax.fori_loop(0, N, body, carry0)
-        dV_ref[0] = out[2]
-        dV_ref[1] = out[3]
-        ok_ref[:, :] = out[4]
-
-    return kernel
-
-
-@functools.partial(jax.jit, static_argnums=(0, 1, 2, 3, 4, 5))
-def _backward_remat_call(problem, config: DDPConfig, nx, nu, N, boxed,
-                         xs, us, VxT, VxxT, lam, t0):
-    """xs [N+1, nx, B4, 128] (stage N's terminal state rides along unused
-    — passing the full array avoids a slice copy), us [N, nu, B4, 128],
-    VxT [nx, B4, 128], VxxT [nx, nx, B4, 128], lam [B4, 128], t0 scalar."""
-    B4 = lam.shape[0]
-    dtype = xs.dtype
-    groups = _hoist_groups(problem, nx, nu, boxed, jnp.dtype(dtype).name)
-    # SUB = one native sublane tile (8): larger blocks blew Mosaic compile
-    # time super-linearly on the VMAPPED body (SUB=32 >10 min, SUB=1 15 s);
-    # the tile-interpreted body compiles fine at 16 and measures parity,
-    # but end-to-end SUB=16 is speed-neutral (1.369M vs 1.366M solves/s,
-    # reps=40 — the forward scans dominate the iteration now), so 8 stays
-    # the default (smaller VMEM window).  NMPC_REMAT_SUB overrides.
-    import os
-
-    SUB = min(int(os.environ.get("NMPC_REMAT_SUB", "8")), B4)
-    while B4 % SUB != 0:
-        SUB //= 2
-    grid = (B4 // SUB,)
-
-    def vspec(*dims):
-        block = tuple(dims) + (SUB, 128)
-        nlead = len(dims)
-        return pl.BlockSpec(block,
-                            lambda i, nlead=nlead: (0,) * nlead + (i, 0),
-                            memory_space=pltpu.VMEM)
-
-    kernel = _make_kernel_remat(problem, config, nx, nu, N, SUB, boxed,
-                                groups)
-    out_shape = (
-        jax.ShapeDtypeStruct((N, nu, B4, 128), dtype),
-        jax.ShapeDtypeStruct((N, nu, nx, B4, 128), dtype),
-        jax.ShapeDtypeStruct((2, B4, 128), dtype),
-        jax.ShapeDtypeStruct((B4, 128), jnp.float32),
-    )
-    out_specs = (vspec(N, nu), vspec(N, nu, nx), vspec(2), vspec())
-    in_specs = [pl.BlockSpec(memory_space=pltpu.HBM)] * 2 + [
-        vspec(nx), vspec(nx, nx), vspec(),
-        pl.BlockSpec((1, 1), lambda i: (0, 0), memory_space=pltpu.SMEM)]
-    scratch = [
-        pltpu.VMEM((2, nx, SUB, 128), dtype),   # x_i
-        pltpu.VMEM((2, nu, SUB, 128), dtype),   # u_i
-        pltpu.SemaphoreType.DMA((2, 2)),
-    ]
-
-    ks, Ks, dV, okf = pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=in_specs,
-        out_specs=out_specs,
-        out_shape=out_shape,
-        scratch_shapes=scratch,
-        # XLA promotes this call's operands+results into scoped vmem when
-        # they fit (measured: exactly operands+results = 16.87 MB at the
-        # headline shape against the default 16 MB scoped limit).  Raising
-        # the limit admits the promotion — I/O served from VMEM.
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=64 * 1024 * 1024),
-    )(xs, us, VxT, VxxT, lam,
-      jnp.reshape(t0, (1, 1)).astype(jnp.float32))
-    return ks, Ks, dV, okf
-
-
 def backward_remat(problem, config: DDPConfig, t0, xs, us, Vx_T, Vxx_T,
                    lam, boxed: bool = False):
     """Drop-in for ``backward_stacked`` / ``backward_stacked_boxed`` that
@@ -439,21 +266,35 @@ def backward_remat(problem, config: DDPConfig, t0, xs, us, Vx_T, Vxx_T,
     Vx_T [nx, B], Vxx_T [nx, nx, B], lam [B]; t0 scalar.
     Returns (ks [N, nu, B], Ks [N, nu, nx, B], dV [2, B], ok [B]).
 
-    Requires B % 128 == 0.  ``boxed=True`` runs the in-kernel BoxQP
-    (full stacked semantics, ``ddp_backward_pallas._boxqp_t``) with the
-    per-stage bounds rematerialized from ``problem.input_limits`` —
-    covering ``DDPSolver.hpp:450-497`` without the bounds buffers either.
+    ``boxed=True`` runs the in-kernel BoxQP with the per-stage bounds
+    rematerialized from ``problem.input_limits``.
     """
     N = us.shape[0]
     nx = xs.shape[1]
     nu = us.shape[1]
     B = lam.shape[-1]
-    assert B % 128 == 0, "remat backward requires B % 128 == 0"
-    B4 = B // 128
+    dtype = xs.dtype
+    groups = _hoist_groups(problem, nx, nu, boxed, jnp.dtype(dtype).name)
+    dt = float(problem.dt)
 
-    r = lambda a: a.reshape(a.shape[:-1] + (B4, 128))
-    ks, Ks, dV, okf = _backward_remat_call(
-        problem, config, nx, nu, N, boxed,
-        r(xs), r(us), r(Vx_T), r(Vxx_T), r(lam), t0)
-    unr = lambda a: a.reshape(a.shape[:-2] + (B,))
-    return unr(ks), unr(Ks), unr(dV), unr(okf) > 0.5
+    def kernel(xs_ref, us_ref, t0_ref, VxT_ref, VxxT_ref, lam_ref, *outs):
+        t0_t = t0_ref[...]
+        ctx = _Ctx()   # shared CSE memo: primals unify across jvp columns
+
+        def stage_fields(i):
+            # same fp32 ops as the sweep's t0 + dt * arange(N)
+            t_i = t0_t + jnp.float32(dt) * i.astype(jnp.float32)
+            x_t = [xs_ref[i, a] for a in range(nx)]
+            u_t = [us_ref[i, a] for a in range(nu)]
+            return _stage_fields_tile(problem, groups, ctx, t_i, x_t, u_t,
+                                      nx, nu, boxed, dtype)
+
+        riccati_loop(config, nx, nu, N, boxed, stage_fields,
+                     VxT_ref, VxxT_ref, lam_ref, *outs)
+
+    t0_b = jnp.full((B,), t0, dtype)
+    ks, Ks, dV, okf = lane_call(
+        kernel, name="ddp_backward_remat",
+        inputs=[xs, us, t0_b, Vx_T, Vxx_T, lam],
+        out_shapes=riccati_out_shapes(nx, nu, N, dtype))
+    return ks, Ks, dV, okf > 0.5

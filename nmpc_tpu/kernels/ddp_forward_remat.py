@@ -1,63 +1,37 @@
-"""Pallas TPU kernels: fused DDP forward line-search rollout.
+"""Pallas kernel (Triton route): fused DDP selected-alpha rollout.
 
-After the round-5 whole-iteration fused backward (in-kernel derivative
-rematerialization, ``ddp_backward_remat.py``), the iteration is dominated
-by the FORWARD scans: at the headline shape the selected-alpha rollout
-(``solvers/ddp.py::_forward_selected_lanes``) measures ~0.35 ms of a
-~0.75 ms iteration — a ``lax.scan`` whose per-stage body is a handful of
-(SUB, 128) elementwise ops + a tiny dynamics/cost callback, paying scan
-sequencing + HBM re-reads per stage.  These kernels move the rollout into
-one Pallas program per B-subblock: per-stage (x_ref, u_ref, k, K) are
-double-buffer-DMA'd from HBM while the candidate state and the cost
-accumulator stay resident in VMEM, and the problem's dynamics /
-running-cost / terminal-cost callables are evaluated by the jaxpr tile
-interpreter (``kernels/tileval.py``) — the same machinery, and therefore
-the same numerical class, as the remat backward.
+The line search's accepted-trajectory rollout
+(``solvers/ddp.py::_forward_selected_lanes``; reference serial rollout
+``DDPSolver.hpp:537-560``) is serial per lane: as a ``lax.scan`` it pays N
+loop trips of tiny ops.  This kernel runs the whole rollout in one program
+per lane block: per-stage (x_ref, u_ref, k, K) are loaded from device
+memory while the candidate state and the cost accumulator stay in
+registers, and the problem's dynamics / running-cost / terminal-cost
+callables are evaluated by the jaxpr tile interpreter
+(``kernels/tileval.py``).
 
-Two variants share one stage body:
-
-* :func:`forward_selected_remat` — the trajectory rollout at a PER-LANE
-  alpha: returns (xs_new, us_new, per-stage costs, in-order cost sum),
-  matching ``_forward_selected_lanes`` (reference serial rollout,
-  ``DDPSolver.hpp:537-560``).
-* :func:`forward_costs_remat` — cost-only sums for a STATIC alpha
-  schedule, the line-search sweep (``DDPSolver.hpp:242-265``): alphas
-  ride a second grid dimension, so every (subblock, alpha) program runs
-  the identical stage body — the sum a lane accepts in the head path is
-  computed by the same tile arithmetic the sweep path compares,
-  preserving the accept-decision identity across ``ls_mode``s that the
-  scan paths pin at the XLA level (solvers/ddp.py head/sweep contract).
-
-Semantics contract (vs the scan paths, pinned by
+Semantics contract (vs the scan path, pinned by
 tests/test_pallas_kernels.py in interpreter mode and by
-benchmarks/parity_gate.py on chip): ``u = u_ref + alpha * k + K dx``
+benchmarks/parity_gate.py on the card): ``u = u_ref + alpha * k + K dx``
 with ``dx`` accumulated left-to-right over nx, ``x' = dynamics(t_i, x,
 u)``, cost accumulated in horizon order then terminal — the same
 expressions on the same values; agreement is fp-reassociation-level.
-``t_i`` uses the scans' ``t0 + dt * i`` fp32 ops.
+``t_i`` uses the scan's ``t0 + dt * i`` fp32 ops.
 
-Eligibility (solver ``auto`` rule, :func:`forward_remat_supported`):
-fp32, B % 128 == 0, and tile-interpretable dynamics / running-cost /
-terminal-cost traces — the same class as the remat backward, so the two
-fuse into the same solve configurations.
+Eligibility (:func:`forward_remat_supported`): cost sums at the solve
+dtype and tile-interpretable dynamics / running-cost / terminal-cost
+traces.
 """
 
 from __future__ import annotations
 
-import functools
-import os
-
-import jax
 import jax.numpy as jnp
 from jax import lax
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from nmpc_tpu.core.types import DDPConfig
-from nmpc_tpu.kernels.ddp_backward_remat import _hoist
-from nmpc_tpu.kernels.tileval import (TileVal, _Ctx, _is_lit,
-                                      eval_jaxpr_tiles,
-                                      jaxpr_tile_supported)
+from nmpc_tpu.kernels.ddp_backward_remat import _hoist, _tile_call
+from nmpc_tpu.kernels.lane_kernel import lane_call
+from nmpc_tpu.kernels.tileval import TileVal, _Ctx, _is_lit, jaxpr_tile_supported
 
 
 def _hoist_forward_groups(problem, nx: int, nu: int, dtype_name: str):
@@ -79,13 +53,6 @@ def forward_remat_supported(problem, nx: int, nu: int,
     return all(jaxpr_tile_supported(g[0]) for g in groups.values())
 
 
-def _tile_call(group, args, ctx):
-    closed, used_args, tree, _ = group
-    kept = [a for a, u_ in zip(args, used_args) if u_]
-    out = eval_jaxpr_tiles(closed, kept, ctx)
-    return jax.tree_util.tree_unflatten(tree, out)
-
-
 def _astile(v, like):
     """Tile-interpreter outputs may be folded python literals; promote to
     a full tile before a ref store / fp accumulate with traced values."""
@@ -96,10 +63,9 @@ def _astile(v, like):
 
 def _stage_forward(groups, ctx, t_i, x, xr, ur, kv, Kv, alpha, nx, nu,
                    dtype):
-    """One line-search forward stage on (SUB, 128) tiles: the scan body of
-    ``_forward_selected_lanes`` (dx feedback, dynamics step, stage cost).
-    ``alpha`` is a tile (per-lane) or a traced scalar (sweep variant —
-    broadcasting into the tile algebra is free)."""
+    """One line-search forward stage on lane tiles: the scan body of
+    ``_forward_selected_lanes`` (dx feedback, dynamics step, stage cost)
+    with a per-lane ``alpha`` tile."""
     dx = [x[b] - xr[b] for b in range(nx)]
     u = []
     for a in range(nu):
@@ -117,71 +83,40 @@ def _stage_forward(groups, ctx, t_i, x, xr, ur, kv, Kv, alpha, nx, nu,
     return xn, u, c
 
 
-def _make_kernel_selected(problem, config: DDPConfig, nx: int, nu: int,
-                          N: int, SUB: int, groups):
-    """Trajectory variant: per-lane alpha, writes (xs_new, us_new, costs,
-    cost sum)."""
+def forward_selected_remat(problem, config: DDPConfig, t0, xs, us, ks, Ks,
+                           alpha):
+    """Drop-in for ``_forward_selected_lanes`` on flat-B batch-minor
+    arrays: xs [N+1, nx, B], us/ks [N, nu, B], Ks [N, nu, nx, B],
+    alpha [B] (per-lane).  Returns (xs_new [N+1, nx, B], us_new
+    [N, nu, B], costs [N+1, B], cost_sum [B]); the sum is accumulated in
+    horizon order exactly like the scan path (the line search's
+    accept-decision contract)."""
+    del config
+    N = us.shape[0]
+    nx = xs.shape[1]
+    nu = us.shape[1]
+    B = alpha.shape[-1]
+    dtype = xs.dtype
+    groups = _hoist_forward_groups(problem, nx, nu, jnp.dtype(dtype).name)
     dt = float(problem.dt)
 
-    def kernel(xs_hbm, us_hbm, ks_hbm, Ks_hbm, alpha_ref, t0_ref,
-               xsn_ref, usn_ref, costs_ref, csum_ref,
-               x_s, u_s, k_s, K_s, sems):
-        g = pl.program_id(0)
-        b0 = g * SUB
-        alpha = alpha_ref[:, :]
-        t0 = t0_ref[0, 0]
-        dtype = alpha.dtype
+    def kernel(xs_ref, us_ref, ks_ref, Ks_ref, alpha_ref, t0_ref,
+               xsn_ref, usn_ref, costs_ref, csum_ref):
+        alpha = alpha_ref[...]
+        t0_t = t0_ref[...]
         ctx = _Ctx()
-
-        def stage_dmas(slot, i):
-            return [
-                pltpu.make_async_copy(
-                    xs_hbm.at[i, :, pl.ds(b0, SUB), :], x_s.at[slot],
-                    sems.at[0, slot]),
-                pltpu.make_async_copy(
-                    us_hbm.at[i, :, pl.ds(b0, SUB), :], u_s.at[slot],
-                    sems.at[1, slot]),
-                pltpu.make_async_copy(
-                    ks_hbm.at[i, :, pl.ds(b0, SUB), :], k_s.at[slot],
-                    sems.at[2, slot]),
-                pltpu.make_async_copy(
-                    Ks_hbm.at[i, :, :, pl.ds(b0, SUB), :], K_s.at[slot],
-                    sems.at[3, slot]),
-            ]
-
-        for d in stage_dmas(0, 0):
-            d.start()
-
-        zeros = jnp.zeros_like(alpha)
-        carry0 = ([zeros for _ in range(nx)], zeros)
+        x0 = [xs_ref[0, b] for b in range(nx)]
+        for b in range(nx):
+            xsn_ref[0, b] = x0[b]
 
         def body(j, carry):
-            slot = lax.rem(j, 2)
-            next_slot = lax.rem(j + 1, 2)
-
-            @pl.when(j + 1 < N)
-            def _():
-                for d in stage_dmas(next_slot, j + 1):
-                    d.start()
-
-            for d in stage_dmas(slot, j):
-                d.wait()
-
-            x_c, ctot = carry
-            xr = [x_s[slot, b] for b in range(nx)]
-            ur = [u_s[slot, a] for a in range(nu)]
-            kv = [k_s[slot, a] for a in range(nu)]
-            Kv = [[K_s[slot, a, b] for b in range(nx)] for a in range(nu)]
-            first = j == 0
-            x = [jnp.where(first, xr[b], x_c[b]) for b in range(nx)]
-
-            @pl.when(first)
-            def _():
-                for b in range(nx):
-                    xsn_ref[0, b] = xr[b]
-
-            # same fp32 ops as the scans' t0 + dt * arange(N)
-            t_i = t0 + jnp.float32(dt) * j.astype(jnp.float32)
+            x, ctot = carry
+            xr = [xs_ref[j, b] for b in range(nx)]
+            ur = [us_ref[j, a] for a in range(nu)]
+            kv = [ks_ref[j, a] for a in range(nu)]
+            Kv = [[Ks_ref[j, a, b] for b in range(nx)] for a in range(nu)]
+            # same fp32 ops as the scan's t0 + dt * arange(N)
+            t_i = t0_t + jnp.float32(dt) * j.astype(jnp.float32)
             xn, u, c = _stage_forward(groups, ctx, t_i, x, xr, ur, kv, Kv,
                                       alpha, nx, nu, dtype)
             for b in range(nx):
@@ -191,220 +126,17 @@ def _make_kernel_selected(problem, config: DDPConfig, nx: int, nu: int,
             costs_ref[j] = c
             return (xn, ctot + c)
 
-        xN, ctot = lax.fori_loop(0, N, body, carry0)
-        tN = t0 + jnp.float32(N * dt)
-        t_v = TileVal((), dtype, [tN])
-        xN_v = TileVal((nx,), dtype, list(xN))
-        cT_v = _tile_call(groups["term"], (t_v, xN_v), ctx)
+        xN, ctot = lax.fori_loop(0, N, body, (x0, jnp.zeros_like(alpha)))
+        tN = t0_t + jnp.float32(N * dt)
+        cT_v = _tile_call(groups["term"], (TileVal((), dtype, [tN]),
+                                           TileVal((nx,), dtype, list(xN))),
+                          ctx)
         cT = _astile(cT_v.elems[0], alpha)
         costs_ref[N] = cT
-        csum_ref[:, :] = ctot + cT
+        csum_ref[...] = ctot + cT
 
-    return kernel
-
-
-def _make_kernel_costs(problem, config: DDPConfig, nx: int, nu: int,
-                       N: int, SUB: int, groups):
-    """Cost-only sweep variant: alpha indexed off grid dim 1 from an SMEM
-    schedule; writes only the per-(alpha, lane) cost sum."""
-    dt = float(problem.dt)
-
-    def kernel(xs_hbm, us_hbm, ks_hbm, Ks_hbm, alphas_ref, t0_ref,
-               csum_ref, x_s, u_s, k_s, K_s, sems):
-        g = pl.program_id(0)
-        b0 = g * SUB
-        alpha = alphas_ref[0, pl.program_id(1)]
-        t0 = t0_ref[0, 0]
-        dtype = x_s.dtype
-        ctx = _Ctx()
-
-        def stage_dmas(slot, i):
-            return [
-                pltpu.make_async_copy(
-                    xs_hbm.at[i, :, pl.ds(b0, SUB), :], x_s.at[slot],
-                    sems.at[0, slot]),
-                pltpu.make_async_copy(
-                    us_hbm.at[i, :, pl.ds(b0, SUB), :], u_s.at[slot],
-                    sems.at[1, slot]),
-                pltpu.make_async_copy(
-                    ks_hbm.at[i, :, pl.ds(b0, SUB), :], k_s.at[slot],
-                    sems.at[2, slot]),
-                pltpu.make_async_copy(
-                    Ks_hbm.at[i, :, :, pl.ds(b0, SUB), :], K_s.at[slot],
-                    sems.at[3, slot]),
-            ]
-
-        for d in stage_dmas(0, 0):
-            d.start()
-
-        zeros = jnp.zeros((SUB, 128), dtype)
-        carry0 = ([zeros for _ in range(nx)], zeros)
-
-        def body(j, carry):
-            slot = lax.rem(j, 2)
-            next_slot = lax.rem(j + 1, 2)
-
-            @pl.when(j + 1 < N)
-            def _():
-                for d in stage_dmas(next_slot, j + 1):
-                    d.start()
-
-            for d in stage_dmas(slot, j):
-                d.wait()
-
-            x_c, ctot = carry
-            xr = [x_s[slot, b] for b in range(nx)]
-            ur = [u_s[slot, a] for a in range(nu)]
-            kv = [k_s[slot, a] for a in range(nu)]
-            Kv = [[K_s[slot, a, b] for b in range(nx)] for a in range(nu)]
-            first = j == 0
-            x = [jnp.where(first, xr[b], x_c[b]) for b in range(nx)]
-            t_i = t0 + jnp.float32(dt) * j.astype(jnp.float32)
-            xn, _, c = _stage_forward(groups, ctx, t_i, x, xr, ur, kv, Kv,
-                                      alpha, nx, nu, dtype)
-            return (xn, ctot + c)
-
-        xN, ctot = lax.fori_loop(0, N, body, carry0)
-        tN = t0 + jnp.float32(N * dt)
-        t_v = TileVal((), dtype, [tN])
-        xN_v = TileVal((nx,), dtype, list(xN))
-        cT_v = _tile_call(groups["term"], (t_v, xN_v), ctx)
-        csum_ref[0] = ctot + _astile(cT_v.elems[0], ctot)
-
-    return kernel
-
-
-def _sub_of(B4: int) -> int:
-    SUB = min(int(os.environ.get("NMPC_FWD_SUB", "8")), B4)
-    while B4 % SUB != 0:
-        SUB //= 2
-    return SUB
-
-
-@functools.partial(jax.jit, static_argnums=(0, 1, 2, 3, 4))
-def _forward_selected_call(problem, config: DDPConfig, nx, nu, N,
-                           xs, us, ks, Ks, alpha, t0):
-    """xs [N+1, nx, B4, 128], us/ks [N, nu, B4, 128],
-    Ks [N, nu, nx, B4, 128], alpha [B4, 128], t0 scalar."""
-    B4 = alpha.shape[0]
-    dtype = xs.dtype
-    groups = _hoist_forward_groups(problem, nx, nu, jnp.dtype(dtype).name)
-    SUB = _sub_of(B4)
-    grid = (B4 // SUB,)
-
-    def vspec(*dims):
-        block = tuple(dims) + (SUB, 128)
-        nlead = len(dims)
-        return pl.BlockSpec(block,
-                            lambda i, nlead=nlead: (0,) * nlead + (i, 0),
-                            memory_space=pltpu.VMEM)
-
-    kernel = _make_kernel_selected(problem, config, nx, nu, N, SUB, groups)
-    out_shape = (
-        jax.ShapeDtypeStruct((N + 1, nx, B4, 128), dtype),
-        jax.ShapeDtypeStruct((N, nu, B4, 128), dtype),
-        jax.ShapeDtypeStruct((N + 1, B4, 128), dtype),
-        jax.ShapeDtypeStruct((B4, 128), dtype),
-    )
-    out_specs = (vspec(N + 1, nx), vspec(N, nu), vspec(N + 1), vspec())
-    in_specs = [pl.BlockSpec(memory_space=pltpu.HBM)] * 4 + [
-        vspec(),
-        pl.BlockSpec((1, 1), lambda i: (0, 0), memory_space=pltpu.SMEM)]
-    scratch = [
-        pltpu.VMEM((2, nx, SUB, 128), dtype),       # x_ref_i
-        pltpu.VMEM((2, nu, SUB, 128), dtype),       # u_ref_i
-        pltpu.VMEM((2, nu, SUB, 128), dtype),       # k_i
-        pltpu.VMEM((2, nu, nx, SUB, 128), dtype),   # K_i
-        pltpu.SemaphoreType.DMA((4, 2)),
-    ]
-    return pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=in_specs,
-        out_specs=out_specs,
-        out_shape=out_shape,
-        scratch_shapes=scratch,
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=64 * 1024 * 1024),
-    )(xs, us, ks, Ks, alpha,
-      jnp.reshape(t0, (1, 1)).astype(jnp.float32))
-
-
-@functools.partial(jax.jit, static_argnums=(0, 1, 2, 3, 4, 5))
-def _forward_costs_call(problem, config: DDPConfig, nx, nu, N, alphas,
-                        xs, us, ks, Ks, t0):
-    """alphas: static tuple — the (sub)schedule rides grid dim 1."""
-    B4 = xs.shape[-2]
-    A = len(alphas)
-    dtype = xs.dtype
-    groups = _hoist_forward_groups(problem, nx, nu, jnp.dtype(dtype).name)
-    SUB = _sub_of(B4)
-    grid = (B4 // SUB, A)
-
-    kernel = _make_kernel_costs(problem, config, nx, nu, N, SUB, groups)
-    out_shape = jax.ShapeDtypeStruct((A, B4, 128), dtype)
-    out_specs = pl.BlockSpec((1, SUB, 128), lambda i, a: (a, i, 0),
-                             memory_space=pltpu.VMEM)
-    in_specs = [pl.BlockSpec(memory_space=pltpu.HBM)] * 4 + [
-        pl.BlockSpec((1, A), lambda i, a: (0, 0),
-                     memory_space=pltpu.SMEM),
-        pl.BlockSpec((1, 1), lambda i, a: (0, 0), memory_space=pltpu.SMEM)]
-    scratch = [
-        pltpu.VMEM((2, nx, SUB, 128), dtype),
-        pltpu.VMEM((2, nu, SUB, 128), dtype),
-        pltpu.VMEM((2, nu, SUB, 128), dtype),
-        pltpu.VMEM((2, nu, nx, SUB, 128), dtype),
-        pltpu.SemaphoreType.DMA((4, 2)),
-    ]
-    return pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=in_specs,
-        out_specs=out_specs,
-        out_shape=out_shape,
-        scratch_shapes=scratch,
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=64 * 1024 * 1024),
-    )(xs, us, ks, Ks,
-      jnp.asarray(alphas, dtype).reshape(1, A),
-      jnp.reshape(t0, (1, 1)).astype(jnp.float32))
-
-
-def forward_selected_remat(problem, config: DDPConfig, t0, xs, us, ks, Ks,
-                           alpha):
-    """Drop-in for ``_forward_selected_lanes`` on flat-B batch-minor
-    arrays: xs [N+1, nx, B], us/ks [N, nu, B], Ks [N, nu, nx, B],
-    alpha [B] (per-lane).  Returns (xs_new [N+1, nx, B], us_new
-    [N, nu, B], costs [N+1, B], cost_sum [B]); the sum is accumulated in
-    horizon order exactly like the scan paths (head/sweep accept-decision
-    contract).  Requires B % 128 == 0."""
-    N = us.shape[0]
-    nx = xs.shape[1]
-    nu = us.shape[1]
-    B = alpha.shape[-1]
-    assert B % 128 == 0, "fused forward requires B % 128 == 0"
-    B4 = B // 128
-    r = lambda a: a.reshape(a.shape[:-1] + (B4, 128))
-    xsn, usn, costs, csum = _forward_selected_call(
-        problem, config, nx, nu, N, r(xs), r(us), r(ks), r(Ks), r(alpha),
-        t0)
-    unr = lambda a: a.reshape(a.shape[:-2] + (B,))
-    return unr(xsn), unr(usn), unr(costs), unr(csum)
-
-
-def forward_costs_remat(problem, config: DDPConfig, t0, xs, us, ks, Ks,
-                        alphas):
-    """Drop-in for ``_forward_costs_lanes`` on flat-B batch-minor arrays:
-    returns per-alpha cost sums [A, B] for the STATIC ``alphas`` schedule
-    (tuple).  Every (subblock, alpha) grid program runs the identical
-    stage body as :func:`forward_selected_remat`."""
-    N = us.shape[0]
-    nx = xs.shape[1]
-    nu = us.shape[1]
-    B = xs.shape[-1]
-    assert B % 128 == 0, "fused forward requires B % 128 == 0"
-    B4 = B // 128
-    r = lambda a: a.reshape(a.shape[:-1] + (B4, 128))
-    csum = _forward_costs_call(problem, config, nx, nu, N, tuple(alphas),
-                               r(xs), r(us), r(ks), r(Ks), t0)
-    return csum.reshape(csum.shape[:-2] + (B,))
+    return tuple(lane_call(
+        kernel, name="ddp_forward_selected",
+        inputs=[xs, us, ks, Ks, alpha, jnp.full((B,), t0, dtype)],
+        out_shapes=[((N + 1, nx), dtype), ((N, nu), dtype),
+                    ((N + 1,), dtype), ((), dtype)]))

@@ -1,173 +1,73 @@
-"""Pallas TPU kernel: fused FMPC forward recursion (delta rollout).
+"""Pallas kernel (Triton route): fused FMPC forward recursion (delta rollout).
 
 The FMPC iteration's forward recursion (``FmpcSolver.hpp:668-708``,
 ``solvers/fmpc.py::_forward_bm``) is a LINEAR stage recursion
-``du = K dx + k; dx' = A dx + B du + x_bar`` — a lax.scan whose per-stage
-body is a handful of small mat-vecs, measured at 0.211 ms of a ~0.56 ms
-PDIP iteration at the cart-pole serving shape (BENCH_RESULTS.md "FMPC
-solve anatomy").  Same disease, same cure as the DDP forward rollout
-(``ddp_forward_remat.py``): one Pallas program per B-subblock streams the
-per-stage coefficients (A, B, x_bar, k, K) from HBM with double-buffered
-DMA while the carry ``dx`` and the recursion arithmetic stay resident in
-VMEM.  No tile interpretation is needed — the recursion is linear in
-precomputed coefficients, so the kernel is pure (SUB, 128) tile algebra.
+``du = K dx + k; dx' = A dx + B du + x_bar`` — as a ``lax.scan`` it pays N
+loop trips of a handful of small mat-vecs.  This kernel runs it in one
+program per lane block: the per-stage coefficients (A, B, x_bar, k, K) are
+loaded from device memory while the carry ``dx`` stays in registers.  The
+recursion is linear in precomputed coefficients, so the kernel is pure
+tile algebra (no tile interpretation).
 
-The Δλ/Δs/Δν post-passes stay at the XLA level (elementwise over the
-big Ps/C/D buffers — XLA fuses them into single passes; nothing
-sequential to win there).
+The Δλ/Δs/Δν post-passes stay at the XLA level (elementwise over the big
+Ps/C/D buffers — XLA fuses them into single passes; nothing sequential to
+win there).
 
-Semantics contract (pinned by tests/test_pallas_kernels.py in
-interpreter mode): identical expressions on identical values as
-``_forward_bm``'s scan — ``dxs[i]`` is the PRE-step delta, ``dxs[N]``
-the final carry; mat-vec reductions accumulate over the contracted dim
-in index order.  Agreement with the scan path is fp-reassociation-level.
+Semantics contract (pinned by tests/test_pallas_kernels.py in interpreter
+mode): identical expressions on identical values as ``_forward_bm``'s scan
+— ``dxs[i]`` is the PRE-step delta, ``dxs[N]`` the final carry; mat-vec
+reductions accumulate over the contracted dim in index order.
 """
 
 from __future__ import annotations
 
-import functools
-
-import jax
-import jax.numpy as jnp
 from jax import lax
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+
+from nmpc_tpu.kernels.lane_kernel import lane_call
 
 
-def _make_kernel(nx: int, nu: int, N: int, SUB: int):
-    def kernel(A_hbm, B_hbm, xb_hbm, ks_hbm, Ks_hbm, dx0_ref,
-               dxs_ref, dus_ref, A_s, B_s, xb_s, k_s, K_s, sems):
-        g = pl.program_id(0)
-        b0 = g * SUB
+def forward_fmpc_deltas_pallas(A, Bm, xb, ks, Ks, dx0):
+    """Fused (dxs, dus) recursion on batch-minor arrays:
+    A [N, nx, nx, B], Bm [N, nx, nu, B], xb [N, nx, B], ks [N, nu, B],
+    Ks [N, nu, nx, B], dx0 [nx, B] -> (dxs [N+1, nx, B], dus [N, nu, B])."""
+    N, nx = A.shape[0], A.shape[1]
+    nu = Bm.shape[2]
+    dtype = dx0.dtype
 
-        def stage_dmas(slot, i):
-            return [
-                pltpu.make_async_copy(
-                    A_hbm.at[i, :, :, pl.ds(b0, SUB), :], A_s.at[slot],
-                    sems.at[0, slot]),
-                pltpu.make_async_copy(
-                    B_hbm.at[i, :, :, pl.ds(b0, SUB), :], B_s.at[slot],
-                    sems.at[1, slot]),
-                pltpu.make_async_copy(
-                    xb_hbm.at[i, :, pl.ds(b0, SUB), :], xb_s.at[slot],
-                    sems.at[2, slot]),
-                pltpu.make_async_copy(
-                    ks_hbm.at[i, :, pl.ds(b0, SUB), :], k_s.at[slot],
-                    sems.at[3, slot]),
-                pltpu.make_async_copy(
-                    Ks_hbm.at[i, :, :, pl.ds(b0, SUB), :], K_s.at[slot],
-                    sems.at[4, slot]),
-            ]
-
-        for d in stage_dmas(0, 0):
-            d.start()
-
-        dx0 = [dx0_ref[b] for b in range(nx)]
-
+    def kernel(A_ref, B_ref, xb_ref, ks_ref, Ks_ref, dx0_ref,
+               dxs_ref, dus_ref):
         def body(j, dx):
-            slot = lax.rem(j, 2)
-            next_slot = lax.rem(j + 1, 2)
-
-            @pl.when(j + 1 < N)
-            def _():
-                for d in stage_dmas(next_slot, j + 1):
-                    d.start()
-
-            for d in stage_dmas(slot, j):
-                d.wait()
-
             # du = K dx + k  (reduction over nx in index order, matching
             # _mv's jnp.sum over the contracted axis)
             du = []
             for a in range(nu):
                 acc = None
                 for b in range(nx):
-                    t = K_s[slot, a, b] * dx[b]
+                    t = Ks_ref[j, a, b] * dx[b]
                     acc = t if acc is None else acc + t
-                du.append(acc + k_s[slot, a])
+                du.append(acc + ks_ref[j, a])
             # dx' = A dx + B du + x_bar
             dxn = []
             for r in range(nx):
                 acc = None
                 for b in range(nx):
-                    t = A_s[slot, r, b] * dx[b]
+                    t = A_ref[j, r, b] * dx[b]
                     acc = t if acc is None else acc + t
                 for a in range(nu):
-                    acc = acc + B_s[slot, r, a] * du[a]
-                dxn.append(acc + xb_s[slot, r])
-
+                    acc = acc + B_ref[j, r, a] * du[a]
+                dxn.append(acc + xb_ref[j, r])
             for b in range(nx):
                 dxs_ref[j, b] = dx[b]
             for a in range(nu):
                 dus_ref[j, a] = du[a]
             return dxn
 
-        dxT = lax.fori_loop(0, N, body, dx0)
+        dxT = lax.fori_loop(0, N, body, [dx0_ref[b] for b in range(nx)])
         for b in range(nx):
             dxs_ref[N, b] = dxT[b]
 
-    return kernel
-
-
-@functools.partial(jax.jit, static_argnums=(0, 1, 2))
-def _forward_fmpc_call(nx, nu, N, A, Bm, xb, ks, Ks, dx0):
-    """A [N, nx, nx, B4, 128], Bm [N, nx, nu, ...], xb [N, nx, ...],
-    ks [N, nu, ...], Ks [N, nu, nx, ...], dx0 [nx, B4, 128]."""
-    import os
-
-    B4 = dx0.shape[-2]
-    dtype = dx0.dtype
-    SUB = min(int(os.environ.get("NMPC_FMPC_FWD_SUB", "8")), B4)
-    while B4 % SUB != 0:
-        SUB //= 2
-    grid = (B4 // SUB,)
-
-    def vspec(*dims):
-        block = tuple(dims) + (SUB, 128)
-        nlead = len(dims)
-        return pl.BlockSpec(block,
-                            lambda i, nlead=nlead: (0,) * nlead + (i, 0),
-                            memory_space=pltpu.VMEM)
-
-    kernel = _make_kernel(nx, nu, N, SUB)
-    out_shape = (
-        jax.ShapeDtypeStruct((N + 1, nx, B4, 128), dtype),
-        jax.ShapeDtypeStruct((N, nu, B4, 128), dtype),
-    )
-    out_specs = (vspec(N + 1, nx), vspec(N, nu))
-    in_specs = [pl.BlockSpec(memory_space=pltpu.HBM)] * 5 + [vspec(nx)]
-    scratch = [
-        pltpu.VMEM((2, nx, nx, SUB, 128), dtype),   # A_i
-        pltpu.VMEM((2, nx, nu, SUB, 128), dtype),   # B_i
-        pltpu.VMEM((2, nx, SUB, 128), dtype),       # x_bar_i
-        pltpu.VMEM((2, nu, SUB, 128), dtype),       # k_i
-        pltpu.VMEM((2, nu, nx, SUB, 128), dtype),   # K_i
-        pltpu.SemaphoreType.DMA((5, 2)),
-    ]
-    return pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=in_specs,
-        out_specs=out_specs,
-        out_shape=out_shape,
-        scratch_shapes=scratch,
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=64 * 1024 * 1024),
-    )(A, Bm, xb, ks, Ks, dx0)
-
-
-def forward_fmpc_deltas_pallas(A, Bm, xb, ks, Ks, dx0):
-    """Fused (dxs, dus) recursion on flat-B batch-minor arrays:
-    A [N, nx, nx, B], Bm [N, nx, nu, B], xb [N, nx, B], ks [N, nu, B],
-    Ks [N, nu, nx, B], dx0 [nx, B] -> (dxs [N+1, nx, B], dus [N, nu, B]).
-    Requires B % 128 == 0."""
-    N, nx = A.shape[0], A.shape[1]
-    nu = Bm.shape[2]
-    B = dx0.shape[-1]
-    assert B % 128 == 0, "fused FMPC forward requires B % 128 == 0"
-    B4 = B // 128
-    r = lambda a: a.reshape(a.shape[:-1] + (B4, 128))
-    dxs, dus = _forward_fmpc_call(nx, nu, N, r(A), r(Bm), r(xb), r(ks),
-                                  r(Ks), r(dx0))
-    unr = lambda a: a.reshape(a.shape[:-2] + (B,))
-    return unr(dxs), unr(dus)
+    dxs, dus = lane_call(
+        kernel, name="fmpc_forward",
+        inputs=[A, Bm, xb, ks, Ks, dx0],
+        out_shapes=[((N + 1, nx), dtype), ((N, nu), dtype)])
+    return dxs, dus

@@ -1,11 +1,11 @@
 """Lane-blocked batching helpers.
 
-TPU vector tiles are (8 sublanes, 128 lanes).  Arrays shaped ``[B, small]``
-(vmap's natural layout) put the small dim on the lanes — 3 % utilization.
-These helpers reshape a flat batch ``B = S * L`` into trailing ``(S, L)``
-axes and double-vmap user callables over them, so every per-lane scalar in
-the traced computation becomes an ``[S, L]`` array — full (8,128) tiles when
-S is a multiple of 8 and L = 128.
+Arrays shaped ``[B, small]`` (vmap's natural layout) put the small dim on
+the minor axis.  These helpers reshape a flat batch ``B = S * L`` into
+trailing ``(S, L)`` axes and double-vmap user callables over them, so every
+per-lane scalar in the traced computation becomes an ``[S, L]`` array with
+the batch on the minor axes (a free reshape of the flat batch-minor
+layout the kernels use).
 """
 
 from __future__ import annotations

@@ -1,12 +1,12 @@
-"""Batched small-matrix linear algebra, unrolled for TPU.
+"""Batched small-matrix linear algebra, unrolled into elementwise ops.
 
 The solvers factorize tiny (nu x nu, nu <= ~16) SPD matrices inside scan
 bodies.  Generic ``jnp.linalg.cholesky`` / ``cho_solve`` lower to LAPACK-ish
 kernels that are catastrophically slow for thousands of independent 1x1..8x8
-systems on TPU (profiled: the DDP backward pass spent ~80% of its time
+systems on an accelerator (profiled: the DDP backward pass spent ~80% of its time
 there).  These routines unroll the factorization/substitution over the
-static small dimension, so every operation is a plain elementwise VPU op
-batched over all leading axes — the idiomatic TPU shape for
+static small dimension, so every operation is a plain elementwise op
+batched over all leading axes — the idiomatic accelerator shape for
 "many tiny matrices".
 
 Semantics match the reference's Eigen usage:

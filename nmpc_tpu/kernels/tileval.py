@@ -1,28 +1,25 @@
-"""Evaluate small scalar jaxprs on (SUB, 128) lane-tile values.
+"""Evaluate small scalar jaxprs on lane-tile values.
 
-The problem this solves (round 5, measured on chip): Pallas kernels that
-rematerialize per-stage derivatives need to run the problem's traced
+The problem this solves: Pallas kernels that rematerialize per-stage
+derivatives or roll out the dynamics need to run the problem's traced
 callbacks (dynamics, cost gradients, jvp tangents) INSIDE the kernel on
 lane-tile values.  Replaying those jaxprs under ``vmap`` keeps small
-vectors 1-D and lets batching rules canonicalize batch dims, which Mosaic
-lowers through physical relayouts/transposes of tiled registers — the
-remat kernel measured **9.45 ms** at the headline shape versus 0.156 ms
-for the identical kernel with its field computation stubbed out (~60x
-overhead on ~1000 elementwise ops).
+vectors as array dims whose layout the kernel compiler has to shuffle.
 
 This module instead interprets the jaxpr directly in the hand-written
 kernels' native data model: every jaxpr value of small shape
 ``(d0, ..., dk)`` becomes a flat row-major list of per-element values,
-where each element is a ``(SUB, 128)`` tile, a traced scalar, or a
+where each element is a lane tile (any shape; the kernels use 1-D
+``(BLOCK,)`` tiles), a traced scalar, or a
 **python literal**.  Consequences:
 
 * transposes / reshapes / slices / concatenates are free list
   re-indexing — no data movement;
-* reductions over small dims are Python sums of tiles — full-width VPU
-  adds;
+* reductions over small dims are Python sums of tiles — full-width
+  elementwise adds;
 * array constants (model weights) inline as python literals, so Pallas's
-  no-captured-consts rule is satisfied with zero plumbing and Mosaic
-  constant-folds them;
+  no-captured-consts rule is satisfied with zero plumbing and the
+  compiler constant-folds them;
 * literal arithmetic folds at trace time (``0 * x -> 0``,
   ``1 * x -> x``, literal op literal -> literal evaluated at the jaxpr
   dtype), so evaluating a jvp jaxpr with a one-hot LITERAL seed

@@ -6,7 +6,7 @@ x = [CoM, linear momentum, angular momentum], inputs are force magnitudes
 along friction-pyramid ridges at contact vertices; the contact stance (and
 hence the input dimension: 16 in stance, 0 in flight) changes over time.
 
-TPU encoding: inputs statically padded to 16 with an all-on/all-off mask;
+Static-shape encoding: inputs statically padded to 16 with an all-on/all-off mask;
 stance geometry (vertices/ridges [16, 3]) is a jnp-valued function of time.
 """
 
@@ -106,7 +106,8 @@ def make_centroidal_problem(
     the natural unilateral-contact bound ``0 <= u_i <= f_max`` on the
     friction-pyramid ridge weights.  This is the wide-input (nu=16)
     boxed shape class the backward-kernel ``auto`` rule routes to the
-    stacked BoxQP (the fused kernels unroll nu^3 work; see
+    stacked BoxQP (the fused kernel unrolls nu^3 work and does not
+    compile in useful time at this width; see
     ``solvers/ddp.py::_resolve_backward_impl``), priced by
     ``benchmarks/bench_all.py::bench_boxed_ddp_centroidal``."""
     if stance_funcs is None:

@@ -7,7 +7,7 @@ vertically under gravity, actuated by 0..2 contact forces depending on time
 
 The reference uses ``InputDim == Eigen::Dynamic`` with ``inputDim(t)``
 returning 0/1/2 (``TestDDPVerticalMotion.cpp:58-75``).  Here the input is
-statically padded to 2 with an active mask — the TPU-native encoding of
+statically padded to 2 with an active mask — the static-shape encoding of
 time-varying dimensions (SURVEY.md §1).
 """
 

@@ -1,23 +1,22 @@
 """Device mesh construction and sharded batch solving.
 
 The reference has **zero parallelism** — every solver is a single-threaded
-loop (SURVEY.md §2.5; e.g. ``DDPSolver.hpp:367``).  This module is the
-TPU-native replacement for what would be a NCCL/MPI backend in a GPU port:
-a `jax.sharding.Mesh` over the chips, `NamedSharding` annotations on the
-batch axis, and XLA collectives over ICI/DCN for reductions.  No hand-rolled
-communication — mesh + shardings are the deliverable.
+loop (SURVEY.md §2.5; e.g. ``DDPSolver.hpp:367``).  Here a
+``jax.sharding.Mesh`` spans the devices, the batch axis is sharded with
+``shard_map``, and reductions are XLA collectives (NCCL on GPUs).  The
+devices of one host are joined all to all, so the mesh shape follows the
+algorithm alone.
 
 Axes
 ----
 ``dp``  — data/scenario parallelism: batch of independent solves sharded
-          across chips (the dominant axis for MPC workloads).
-``sp``  — reserved sequence/horizon axis for the parallel-in-time Riccati
+          across devices (the dominant axis for MPC workloads).
+``sp``  — sequence/horizon axis for the parallel-in-time Riccati
           components (solvers/parallel_riccati.py); size 1 for stock solves.
 """
 
 from __future__ import annotations
 
-import functools
 from typing import Optional, Sequence
 
 import jax
@@ -27,25 +26,21 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 def initialize_multihost(coordinator_address=None, num_processes=None,
                          process_id=None):
-    """Multi-host launcher: initialize the JAX distributed runtime so that
-    ``jax.devices()`` spans every host's chips and meshes/collectives ride
-    ICI within a slice and DCN across slices (SURVEY §2.5).
-
-    On single-host (or already-initialized) setups this is a no-op.  On a
-    pod slice, call once per process before building meshes; arguments
-    default to the cluster environment (TPU metadata / env vars).
+    """Initialize the JAX distributed runtime so that ``jax.devices()``
+    spans every process's devices.  Call once per process before building
+    meshes, with an explicit ``coordinator_address`` (``host:port``),
+    ``num_processes`` and ``process_id``; a failure to reach the
+    coordinator raises.  Without a coordinator address this is a
+    single-process run and nothing is initialized; an already-initialized
+    runtime is left alone.
     """
-    if jax.process_count() > 1:
-        return  # already initialized
-    try:
-        jax.distributed.initialize(
-            coordinator_address=coordinator_address,
-            num_processes=num_processes,
-            process_id=process_id,
-        )
-    except (ValueError, RuntimeError):
-        # single-process environment: nothing to initialize
-        pass
+    if coordinator_address is None or jax.distributed.is_initialized():
+        return
+    jax.distributed.initialize(
+        coordinator_address=coordinator_address,
+        num_processes=num_processes,
+        process_id=process_id,
+    )
 
 
 def make_mesh(
@@ -80,24 +75,26 @@ def shard_batch(mesh: Mesh, tree):
 
 
 def make_sharded_solve(solver, mesh: Mesh):
-    """jit the solver's batched solve with batch sharded over ``dp``.
+    """The solver's batched solve with the batch sharded over ``dp``.
 
-    XLA inserts the (trivially parallel) partitioning; collective reductions
-    only appear in cross-batch statistics (see ``convergence_stats``).
-    Returns solve(t0, x0s [B,nx], us0s [B,N,nu]) with B divisible by dp.
+    Lanes are independent, so each device runs ``raw_solve_batch`` on its
+    shard under ``shard_map`` (the lane kernels are custom calls the SPMD
+    partitioner cannot split).  Returns solve(t0, x0s [B,nx], us0s
+    [B,N,nu]) with B divisible by dp; every result leaf is batch-leading
+    and stays sharded.
     """
-    sh = batch_sharding(mesh)
-    return jax.jit(
-        solver.raw_solve_batch,
-        in_shardings=(None, sh, sh),
-        out_shardings=sh,
-    )
+    from jax import shard_map
+
+    return jax.jit(shard_map(
+        solver.raw_solve_batch, mesh=mesh,
+        in_specs=(P(), P("dp"), P("dp")), out_specs=P("dp"),
+        check_vma=False))
 
 
 def convergence_stats(mesh: Mesh, result):
     """Global success-rate / mean-iteration statistics with an explicit
-    psum over the ``dp`` axis (shard_map), exercising ICI collectives —
-    the batched analog of the reference's per-solve status reporting."""
+    psum over the ``dp`` axis (shard_map) — the batched analog of the
+    reference's per-solve status reporting."""
     import jax.numpy as jnp
     from jax import shard_map
 

@@ -6,7 +6,7 @@
 // (nmpc_ddp/tests/src/TestDDPCartPole.cpp:299-347,
 //  nmpc_fmpc/tests/src/TestFmpcCartPole.cpp:345-356).
 //
-// This is the TPU-framework equivalent as a standalone native runtime:
+// This is the framework's equivalent as a standalone native runtime:
 //  * a seqlock "latest control packet" buffer connecting the solver thread
 //    to the control thread without locks on the hot path,
 //  * a control thread stepping the plant at sim_dt and applying the packet's

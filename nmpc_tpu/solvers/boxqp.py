@@ -1,4 +1,4 @@
-"""Projected-Newton QP with box constraints, TPU-native (masked, static-shape).
+"""Projected-Newton QP with box constraints, batched (masked, static-shape).
 
 Algorithmic equivalent of the reference ``nmpc_ddp::BoxQP``
 (``nmpc_ddp/include/nmpc_ddp/BoxQP.h:126-347``; Tassa, Mansard, Todorov,
@@ -10,8 +10,8 @@ Algorithmic equivalent of the reference ``nmpc_ddp::BoxQP``
   * Armijo backtracking with clamp projection (``BoxQP.h:293-309``),
   * the same return-code table (``BoxQP.h:375-383``).
 
-TPU redesign notes
-------------------
+Batched redesign notes
+----------------------
 The reference gathers the free sub-matrix ``H_free`` and refactorizes only
 when the clamped set changes.  Gathers and dynamic shapes defeat XLA, so we
 instead solve the *masked* fixed-shape system
@@ -22,7 +22,7 @@ whose free block is exactly ``H_free`` and whose clamped block is identity —
 the Newton step and the feedback-gain solve read off the free rows directly,
 with zero rows for clamped dims.  The loop is a ``lax.while_loop`` (early
 exit preserved; under ``vmap`` lanes are masked independently), every
-iteration refactorizes (a [nu,nu] Cholesky is a handful of VPU ops at the
+iteration refactorizes (a [nu,nu] Cholesky is a handful of elementwise ops at the
 sizes MPC sees, cheaper than branching).
 """
 

@@ -1,4 +1,4 @@
-"""C/GMRES real-time NMPC solver (Ohtsuka's continuation method), TPU-native.
+"""C/GMRES real-time NMPC solver (Ohtsuka's continuation method), batched in XLA.
 
 Algorithmic equivalent of the reference ``nmpc_cgmres::CgmresSolver``
 (``nmpc_cgmres/src/CgmresSolver.cpp``; Ohtsuka, Automatica 2004):
@@ -15,7 +15,7 @@ Algorithmic equivalent of the reference ``nmpc_cgmres::CgmresSolver``
     step's solution,
   * integration of u̇ into the input trajectory (``CgmresSolver.cpp:137-140``).
 
-TPU-first: the whole control step (2 + k_max GMRES iterations, each a full
+Accelerator-first: the whole control step (2 + k_max GMRES iterations, each a full
 horizon sweep) fuses into ONE jitted XLA computation; horizon sweeps are
 ``lax.scan``; the closed-loop simulation is available as a host loop
 (:meth:`run`) or a fully-on-device ``lax.scan`` (:meth:`simulate`) for
@@ -37,6 +37,7 @@ from jax import lax
 from nmpc_tpu.core.integrators import INTEGRATORS
 from nmpc_tpu.core.problem import ContinuousProblem
 from nmpc_tpu.solvers.gmres import gmres
+from nmpc_tpu.utils.precision import full_precision
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,23 +79,24 @@ class CgmresSolver:
                  config: CgmresConfig = CgmresConfig()):
         self.problem = problem
         self.config = config
-        self._setup = jax.jit(functools.partial(_setup, problem, config))
-        self._step = jax.jit(functools.partial(_control_step, problem, config))
-        self._sim = jax.jit(functools.partial(_simulate, problem, config),
+        bind = lambda f: full_precision(functools.partial(f, problem, config))
+        self._setup = jax.jit(bind(_setup))
+        self._step = jax.jit(bind(_control_step))
+        self._sim = jax.jit(bind(_simulate),
                             static_argnames=("n_steps",))
         # batched controllers: the lane-blocked batch-minor fleet kernel
         # (gmres_bm + batch-minor sweeps); vmap-of-single retained for
         # comparison/testing as _step_batch_vmap
         self._step_batch = jax.jit(
-            functools.partial(_control_step_bm, problem, config))
+            bind(_control_step_bm))
         self._step_batch_vmap = jax.jit(jax.vmap(
-            functools.partial(_control_step, problem, config),
+            bind(_control_step),
             in_axes=(None, 0, 0, 0)))
         # batched closed loop rides the lane-blocked kernel end-to-end
         # (boundary transposes once, outside the scan); the vmap-of-single
         # variant is retained for parity testing as _sim_batch_vmap
         self._sim_batch = jax.jit(
-            functools.partial(_simulate_bm, problem, config),
+            bind(_simulate_bm),
             static_argnames=("n_steps",))
 
         def _sim_batch_vmap(t0, x0s, states, n_steps):
@@ -102,7 +104,7 @@ class CgmresSolver:
                 lambda x0, st: _simulate(problem, config, t0, x0, st,
                                          n_steps=n_steps))(x0s, states)
 
-        self._sim_batch_vmap = jax.jit(_sim_batch_vmap,
+        self._sim_batch_vmap = jax.jit(full_precision(_sim_batch_vmap),
                                        static_argnames=("n_steps",))
 
     def setup(self, t0=0.0, x0=None, u0=None) -> CgmresState:

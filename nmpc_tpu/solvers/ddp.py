@@ -1,4 +1,4 @@
-"""DDP / iLQG trajectory optimizer, TPU-native.
+"""DDP / iLQG trajectory optimizer, batched in XLA.
 
 Algorithmic equivalent of the reference ``nmpc_ddp::DDPSolver``
 (``nmpc_ddp/include/nmpc_ddp/DDPSolver.hpp``; Tassa, Erez, Todorov IROS 2012 /
@@ -17,8 +17,8 @@ Tassa, Mansard, Todorov ICRA 2014):
     cost update ``:289-298``, max-iter ``:116``) and failure modes (lambda
     overflow in backward retry / forward reject).
 
-TPU-first redesign
-------------------
+Batched redesign
+----------------
 * The derivative sweep is one vmapped autodiff evaluation over all N stages
   (reference: N sequential virtual calls, ``DDPSolver.hpp:160-178``).
 * The backward pass is a ``lax.scan``; batched solves add a leading vmap axis
@@ -49,6 +49,7 @@ from nmpc_tpu.core.problem import Problem
 from nmpc_tpu.core.types import DDPConfig, DDPResult, DDPStatus, DDPTrace
 from nmpc_tpu.kernels.linalg import cho_solve_small, cholesky_small
 from nmpc_tpu.solvers.boxqp import boxqp_solve
+from nmpc_tpu.utils.precision import full_precision
 
 
 class _StageDerivs(NamedTuple):
@@ -83,11 +84,14 @@ class DDPSolver:
                 "the fp64 derivative islands would silently run in fp32")
         # raw (unjitted) single-solve function; reused by the distributed
         # layer to re-jit with explicit shardings (parallel/mesh.py).
-        self.raw_solve = functools.partial(_solve, problem, config)
-        # Batched solve: the batch-minor "stacked" backward kernel is the
-        # fast path for every configuration (see kernels/ddp_backward.py;
-        # boxed inputs use the stacked BoxQP, full DDP adds StackedSecond).
-        self.raw_solve_batch = functools.partial(_solve_stacked, problem, config)
+        self.raw_solve = full_precision(
+            functools.partial(_solve, problem, config))
+        # Batched solve: batch-minor end to end; on a GPU the backward and
+        # the selected-alpha rollout run as fused kernels
+        # (_resolve_backward_impl / _resolve_forward_fused), elsewhere the
+        # stacked XLA kernels (kernels/ddp_backward.py).
+        self.raw_solve_batch = full_precision(
+            functools.partial(_solve_stacked, problem, config))
         self._solve = jax.jit(self.raw_solve)
         self._solve_batch = jax.jit(self.raw_solve_batch)
 
@@ -608,8 +612,7 @@ def _ls_cost_dtype(problem, config, ts, xs_l, us_l):
     under x64) widened by deriv_dtype — fp32 cost sums (~300 at fp32 eps)
     put ~2e-5 noise into the alpha acceptance comparisons, a measurable
     slice of the fp32 u-parity floor.  Shared by the all-alphas sweep and
-    the selected-alpha rollout so every path accumulates identically
-    (VERDICT r4 weak #5 / ADVICE r4 #1)."""
+    the selected-alpha rollout so every path accumulates identically."""
     cdtype = jax.eval_shape(
         problem.running_cost, ts[0], xs_l[0, :, 0, 0], us_l[0, :, 0, 0]).dtype
     return jnp.promote_types(cdtype, _deriv_dtype_of(config, xs_l.dtype))
@@ -617,7 +620,7 @@ def _ls_cost_dtype(problem, config, ts, xs_l, us_l):
 
 def _forward_costs_lanes(problem, config, t0, xs_l, us_l, ks_l, Ks_l,
                          alphas_override=None):
-    """Cost-only line-search rollout, all alphas at once (TPU redesign of
+    """Cost-only line-search rollout, all alphas at once (batched redesign of
     the reference's serial alpha loop, ``DDPSolver.hpp:242-265,537-560``).
 
     Alpha lives on a small LEADING axis of the scan carry, so the per-stage
@@ -685,7 +688,7 @@ def _forward_selected_lanes(problem, config, t0, xs_l, us_l, ks_l, Ks_l,
     ``_forward_costs_lanes``' per-alpha sums (same values — the cost enters
     at its native dtype, is cast to cdtype, then added in horizon order),
     so head-path alpha[0] acceptance compares bit-identically against
-    sweep-path sums at any precision (VERDICT r4 weak #5 / ADVICE r4 #1).
+    sweep-path sums at any precision.
     """
     from nmpc_tpu.kernels.lanes import vmap_lanes
 
@@ -716,63 +719,73 @@ def _forward_selected_lanes(problem, config, t0, xs_l, us_l, ks_l, Ks_l,
     return xs_all, us_new, costs_all, ctot + c_term_raw.astype(cdtype)
 
 
-# Whether backward_impl="auto" may select the whole-iteration remat kernel
-# (flipped per the project's kernel discipline: interpreter parity test ->
-# on-chip parity gate entry -> measured win -> THEN the default changes).
-# Round 5: flipped after the tileval kernel measured 0.542 ms vs 1.27 ms
-# for sweep+fused-backward at the headline shape (parity 3.6e-6, gate
-# entry ddp_remat in benchmarks/parity_gate.py).
-_AUTO_REMAT = True
-
-
-def _resolve_backward_impl(config: DDPConfig, problem: Problem, B: int,
-                           dtype, boxed: bool, second: bool) -> str:
+def _resolve_backward_impl(config: DDPConfig, problem: Problem, dtype,
+                           boxed: bool, second: bool) -> str:
     """Static backward-kernel choice for the batched solve — the one place
     holding the ``auto`` rule (see ``DDPConfig.backward_impl``).
 
-    ``auto`` prefers, in order:
-      1. "remat" — whole-iteration fusion: the derivative sweep is
-         eliminated and stage derivatives are recomputed in-kernel from
-         (x_i, u_i) (kernels/ddp_backward_remat.py).  Needs fp32,
-         B % 128 == 0, ``deriv_dtype == "same"`` (no fp64 islands on the
-         TPU VPU), first-order terms only, and Mosaic-traceable problem
-         callbacks (plain jnp algebra — true for every in-repo model;
-         problems doing e.g. gather-heavy table interpolation should set
-         ``backward_impl="pallas"``).  Measured on a v5e (2026-08-21,
-         benchmarks/bench_backward.py): replaces 0.201 ms of
-         sweep+backward with one kernel at the headline shape.
-      2. "pallas" — sweep + fused backward kernel (round 2-4 default).
-      3. "stacked" — batch-minor XLA kernel, always available.
-
-    Boxed solves additionally require nu <= 4 for the fused kernels: the
-    in-kernel BoxQP fully unrolls nu x nu Cholesky + Armijo blocks, so
-    compile size and VMEM grow ~nu^3; wide-input boxed problems
-    (centroidal nu=16 with friction-pyramid ridges) take the stacked
-    kernel, whose while-loop BoxQP scales (VERDICT r4 weak #2 — priced
-    in benchmarks/bench_all.py's boxed-centroidal row).
+    ``auto`` on a GPU, for fp32 first-order solves, prefers:
+      1. "remat" — the fused kernel fed by the trajectory, stage
+         derivatives recomputed in-kernel (no derivative sweep, no stage
+         derivative buffer).  Needs ``deriv_dtype == "same"`` and problem
+         callbacks the tile interpreter supports.
+      2. "pallas" — derivative sweep + fused backward kernel.
+    and "stacked", the batch-minor XLA kernel, everywhere else.  Boxed
+    solves also need nu <= 2: the in-kernel BoxQP fully unrolls nu x nu
+    Cholesky and Armijo blocks per lane, so the kernel's code grows ~nu^3
+    and its compile time with it.  On an H100 the boxed solve with the
+    kernel compiles at nu=2 (vertical motion) inside the 91 s of
+    ``chip_smoke.py``'s boxed phase, stacked solves included, but had not
+    compiled after 7 minutes at nu=8 (B=256, N=100), where the stacked
+    solve runs at 0.91 s.  Widths 3-7 are unmeasured and keep the stacked kernel,
+    whose while-loop BoxQP compiles at any width.
     """
     impl = config.backward_impl
     if impl != "auto":
         return impl
-    eligible = (B % 128 == 0
+    from nmpc_tpu.kernels.lane_kernel import on_gpu
+
+    eligible = (on_gpu()
                 and jnp.dtype(dtype) == jnp.float32
-                and not second
-                and jax.default_backend() == "tpu")
+                and not second)
     if boxed:
-        eligible = eligible and problem.input_dim <= 4
-    # remat additionally needs B >= 1024: its SUB=8 blocks need B4 >= 8
-    # for full sublane utilization — at B=256 (tick loops) SUB degrades
-    # to 2 and the compute-bound body runs at 1/4 VPU efficiency
-    # (measured: 256-controller p99 tick 1.67 ms via remat vs 1.11 ms
-    # via the sweep-fed pallas kernel).
-    if (_AUTO_REMAT and eligible and B >= 1024
-            and config.deriv_dtype == "same"):
+        eligible = eligible and problem.input_dim <= 2
+    if not eligible:
+        return "stacked"
+    if config.deriv_dtype == "same":
         from nmpc_tpu.kernels.ddp_backward_remat import remat_supported
 
         if remat_supported(problem, problem.state_dim, problem.input_dim,
                            boxed):
             return "remat"
-    return "pallas" if eligible else "stacked"
+    return "pallas"
+
+
+def _resolve_forward_fused(config: DDPConfig, problem: Problem, dtype,
+                           cdtype) -> bool:
+    """Whether the selected-alpha rollout runs as the fused Pallas kernel
+    (``DDPConfig.forward_impl``).  The kernel accumulates cost sums in
+    horizon order at the solve dtype, so the line search's accept contract
+    needs ``cdtype == dtype``, and the rollout callables must
+    tile-interpret.  The all-alphas cost sweep always stays on the scan:
+    it is A x the rollout work in one batched scan."""
+    if config.forward_impl == "scan":
+        return False
+    from nmpc_tpu.kernels.ddp_forward_remat import forward_remat_supported
+    from nmpc_tpu.kernels.lane_kernel import on_gpu, require_kernels
+
+    nx, nu = problem.state_dim, problem.input_dim
+    fwd_ok = (cdtype == dtype
+              and forward_remat_supported(problem, nx, nu,
+                                          jnp.dtype(dtype).name))
+    if config.forward_impl == "fused":
+        require_kernels("forward_impl='fused'")
+        assert fwd_ok, (
+            "forward_impl='fused' requires cost sums at the solve dtype "
+            "and tile-interpretable dynamics / cost / terminal-cost "
+            "callables")
+        return True
+    return fwd_ok and on_gpu() and jnp.dtype(dtype) == jnp.float32
 
 
 def _make_backward_fn(config: DDPConfig, impl: str, Dst, VxT_s, VxxT_s,
@@ -781,13 +794,11 @@ def _make_backward_fn(config: DDPConfig, impl: str, Dst, VxT_s, VxxT_s,
     returns ``backward_fn(lam) -> (ks, Ks, dV, ok)`` (batch-minor).
     (The "remat" impl is trajectory-fed and bound in ``_solve_stacked``.)
     """
+    if impl == "pallas" and D2 is not None:
+        raise ValueError("backward_impl='pallas' is first-order only "
+                         "(use_state_eq_second_derivative needs 'stacked')")
     if bounds is not None:
-        if impl in ("pallas", "remat") and D2 is None:
-            # fused boxed kernel: the per-stage BoxQP runs inside the
-            # Pallas program with full stacked semantics (while-loop
-            # continuations to max_iter / end of Armijo schedule; round 4).
-            # Measured on chip: 17.6x the stacked boxed backward, 11.2x
-            # end-to-end (benchmarks/profile_boxed_ddp.py, 2026-08-20)
+        if impl == "pallas":
             from nmpc_tpu.kernels.ddp_backward_pallas import (
                 backward_pallas_boxed)
 
@@ -797,7 +808,7 @@ def _make_backward_fn(config: DDPConfig, impl: str, Dst, VxT_s, VxxT_s,
 
         return lambda lam: backward_stacked_boxed(config, Dst, bounds,
                                                   VxT_s, VxxT_s, lam, D2=D2)
-    if impl in ("pallas", "remat") and D2 is None:
+    if impl == "pallas":
         from nmpc_tpu.kernels.ddp_backward_pallas import backward_pallas
 
         return lambda lam: backward_pallas(config, Dst, VxT_s, VxxT_s, lam)
@@ -899,70 +910,20 @@ def _solve_stacked(problem: Problem, config: DDPConfig, t0, x0s, us_init) -> DDP
 
     boxed = config.with_input_constraint
     second = config.use_state_eq_second_derivative
-    impl = _resolve_backward_impl(config, problem, B, dtype, boxed, second)
+    impl = _resolve_backward_impl(config, problem, dtype, boxed, second)
 
     xs, costs = _rollout_lanes(problem, config, t0,
                                block_lanes(x0s, 0, S, L),
                                block_lanes(us_init, 0, S, L))
 
-    # Forward line-search evaluation strategy (DDPConfig.forward_impl):
-    # fused Pallas rollout kernels replace the lax.scan paths when the
-    # backward resolved to "remat" (same eligibility class) and the
-    # rollout callables tile-interpret.  The kernels' cost sums are
-    # accumulated in horizon order at the solve dtype, so the accept
-    # contract requires cdtype == dtype (true whenever remat is eligible:
-    # fp32 + deriv_dtype "same").
-    if config.forward_impl != "scan" and B % 128 == 0:
-        from nmpc_tpu.kernels.ddp_forward_remat import (
-            forward_remat_supported, forward_selected_remat)
-
-        cdtype = _ls_cost_dtype(problem, config,
-                                t0 + problem.dt * jnp.arange(N, dtype=dtype),
-                                xs, block_lanes(us_init, 0, S, L))
-        fwd_ok = (cdtype == dtype
-                  and forward_remat_supported(problem, nx, nu,
-                                              jnp.dtype(dtype).name))
-        if config.forward_impl == "fused":
-            assert fwd_ok, (
-                "forward_impl='fused' requires B % 128 == 0, cost sums at "
-                "the solve dtype, and tile-interpretable dynamics / cost / "
-                "terminal-cost callables")
-            fwd_fused = True
-        else:
-            # auto: any compiled-TPU solve matching the measured win
-            # region, NOT just remat-eligible ones — unlike the remat
-            # backward (B-gated to >= 1024 because its compute-bound body
-            # degrades at SUB < 8), the forward kernel WINS HARDEST at
-            # small batch, where the lax.scan pays N sequential-step
-            # overheads on tiny ops.  End-to-end A/B (reps=40,
-            # 2026-08-21, cart-pole): B=256 N=200 2.7-2.9x, B=512 N=25
-            # 1.63x, B=512 N=50 1.26x, B=4096 N=100 1.05x, B=1024 N=100
-            # boxed 1.09x; NEUTRAL at B=128 N=100; LOSES at short
-            # horizons (B=512 N=12: 0.96x) and large-batch short-horizon
-            # (B=2048 N=25: 0.61x — the scan's per-step overhead
-            # amortizes over big tiles while the kernel pays per-stage
-            # DMA).  Rule: horizon long enough to amortize the stage
-            # DMA loop, and batch small OR horizon long.
-            fwd_fused = (fwd_ok and jax.default_backend() == "tpu"
-                         and N >= 25 and (B <= 512 or N >= 50))
-    else:
-        assert config.forward_impl != "fused", (
-            "forward_impl='fused' requires B % 128 == 0")
-        fwd_fused = False
+    cdtype = _ls_cost_dtype(problem, config,
+                            t0 + problem.dt * jnp.arange(N, dtype=dtype),
+                            xs, block_lanes(us_init, 0, S, L))
+    fwd_fused = _resolve_forward_fused(config, problem, dtype, cdtype)
 
     if fwd_fused:
-        # Only the SELECTED-alpha rollout is fused; the all-alphas cost
-        # sweep stays on the scan path — measured on chip (2026-08-21,
-        # chained in-graph, headline shape): fused f_sel 0.068 ms vs scan
-        # 0.134 ms (the win: no scan sequencing, refs streamed once,
-        # carry resident in VMEM), but the A-alpha sweep is COMPUTE-bound
-        # (A x the rollout work) and XLA's batched [A, ...] scan already
-        # runs it at 0.381 ms vs 0.550 ms for the grid-per-alpha kernel
-        # (which re-reads every per-stage ref A times).  Head-path accept
-        # decisions use the fused kernel's in-order sum for alpha[0] and
-        # scan sums for the tail — each pick_alpha comparison stays
-        # internally coherent (the alpha[0] column IS the sum the lane's
-        # accept0 was decided from).
+        from nmpc_tpu.kernels.ddp_forward_remat import forward_selected_remat
+
         def f_sel(t0_, xs_l, us_l, ks_l, Ks_l, alpha_l):
             xsn, usn, cs, csum = forward_selected_remat(
                 problem, config, t0_, flat(xs_l), flat(us_l), flat(ks_l),
@@ -1062,10 +1023,8 @@ def _solve_stacked(problem: Problem, config: DDPConfig, t0, x0s, us_init) -> DDP
         # every mode — the reference's serial first-accept loop,
         # DDPSolver.hpp:242-265).  Default "auto" = per-iteration
         # lax.cond between head_path and sweep_path driven by an
-        # accept-history hysteresis predictor (round 5; measured reps=40:
-        # auto within 0.4% of the best static mode on the headline and
-        # 4.5% on bipedal, r4 gap 8%).  See DDPConfig.ls_mode for the
-        # mode inventory incl. the serial_path negative result.
+        # accept-history hysteresis predictor.  See DDPConfig.ls_mode for
+        # the mode inventory.
         cost_old = flat(jnp.sum(s.costs, axis=0))                  # [B]
         expected = -alphas[:, None] * (dV[0][None, :]
                                        + alphas[:, None] * dV[1][None, :])
@@ -1099,7 +1058,7 @@ def _solve_stacked(problem: Problem, config: DDPConfig, t0, x0s, us_init) -> DDP
             # h_sum is accumulated inside f_sel's scan exactly like the
             # sweep path's per-alpha sums (same order, same cdtype), so the
             # alpha[0] accept decision is bit-identical across ls modes at
-            # any precision (ADVICE r4 #1 / VERDICT r4 weak #5)
+            # any precision
             sum0 = flat(h_sum)                                     # [B]
             actual0 = (cost_old - sum0).astype(wdtype)
             ratio0 = ratio_of(actual0, expected[0].astype(wdtype))
@@ -1139,16 +1098,11 @@ def _solve_stacked(problem: Problem, config: DDPConfig, t0, x0s, us_init) -> DDP
             other modes (the per-trip cost sum comes from f_sel's in-scan
             cdtype accumulator — the same values the sweep compares).
 
-            MEASURED NEGATIVE RESULT (2026-08-21, reps=40 on chip, kept
-            as an opt-in mode): cart-pole headline 1.05M vs 1.33M for
-            head/auto (the while_loop's per-trip where-updates copy the
-            full candidate trajectory buffers), bipedal N=300 24k vs 130k
-            sweep (deep backtracking pays max-first-accept-depth full
-            scans).  The hysteresis auto predictor dominates it on every
-            measured workload; the mode stays because it is the only
-            search whose cost model matches the reference's serial loop
-            exactly, which makes it useful for apples-to-apples
-            comparisons.
+            The while_loop's per-trip where-updates copy the full candidate
+            trajectory buffers, and deep backtracking pays
+            max-first-accept-depth full rollouts; the mode stays because
+            it is the only search whose cost model matches the reference's
+            serial loop exactly (apples-to-apples comparisons).
             """
             ex_w = expected.astype(wdtype)                         # [A, B]
 

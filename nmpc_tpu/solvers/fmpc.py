@@ -1,5 +1,5 @@
 """FMPC solver: direct multiple shooting + primal-dual interior point +
-stagewise Riccati recursion, TPU-native.
+stagewise Riccati recursion, batched in XLA.
 
 Algorithmic equivalent of the reference ``nmpc_fmpc::FmpcSolver``
 (``nmpc_fmpc/include/nmpc_fmpc/FmpcSolver.hpp``; Katayama PhD thesis §2.2):
@@ -17,7 +17,7 @@ Algorithmic equivalent of the reference ``nmpc_fmpc::FmpcSolver``
     Armijo line search (``:752-793, 836-982``),
   * NaN/Inf detection on coefficients and deltas (``:10-18, 649-662``).
 
-TPU-first redesign: coefficients are one vmapped autodiff sweep; the Riccati
+Batched redesign: coefficients are one vmapped autodiff sweep; the Riccati
 recursion is a ``lax.scan``; the PDIP iteration loop is a ``lax.while_loop``
 with per-lane ``FmpcStatus`` (a diverging lane cannot abort a batch);
 time-varying input/inequality dimensions are static padding + masks
@@ -42,6 +42,7 @@ from jax import lax
 
 from nmpc_tpu.core.problem import Problem
 from nmpc_tpu.kernels.linalg import cho_solve_small, cholesky_small, lu_solve_small
+from nmpc_tpu.utils.precision import full_precision
 from nmpc_tpu.core.types import (
     FmpcConfig,
     FmpcResult,
@@ -87,9 +88,11 @@ class FmpcSolver:
         )
         self.problem = problem
         self.config = config
-        self.raw_solve = functools.partial(_solve, problem, config)
+        self.raw_solve = full_precision(
+            functools.partial(_solve, problem, config))
         # natively-batched path with the batch-minor Riccati kernel
-        self.raw_solve_batch = functools.partial(_solve_batched, problem, config)
+        self.raw_solve_batch = full_precision(
+            functools.partial(_solve_batched, problem, config))
         self._solve = jax.jit(self.raw_solve)
         self._solve_batch = jax.jit(self.raw_solve_batch)
 
@@ -239,7 +242,7 @@ def _backward_bm(problem: Problem, config: FmpcConfig, co, ss, nus, gms,
 
     Same math as :func:`_backward` (``FmpcSolver.hpp:524-665``) with the
     batch on the vector lanes (see kernels/ddp_backward.py for why this
-    layout is ~10x faster on TPU).  ``co`` fields (a :class:`_StCoeffs`)
+    layout keeps the batch on the fast axis).  ``co`` fields (a :class:`_StCoeffs`)
     arrive ALREADY batch-minor [N, small_dims..., B] — zero in-loop layout
     transposes; ``ss``/``nus`` are [N, ng, B], ``gms`` [N, ng] (masks are
     lane-independent), ``barrier_eps`` per-lane [B].
@@ -956,6 +959,25 @@ class _BState(NamedTuple):
     trace_kkt: jnp.ndarray  # [B, max_iter+1]
 
 
+def _resolve_impls(config: FmpcConfig, dtype, ng: int):
+    """(backward impl, fused forward?) for the batched solve — the one
+    place holding the ``auto`` rules (``FmpcConfig.backward_impl`` /
+    ``forward_impl``): the fused Pallas kernels on a GPU for fp32 solves
+    (the backward also needs an inequality row), the batch-minor XLA scans
+    otherwise."""
+    from nmpc_tpu.kernels.lane_kernel import on_gpu
+
+    kernel_ok = on_gpu() and jnp.dtype(dtype) == jnp.float32
+    impl = config.backward_impl
+    if impl == "auto":
+        impl = "pallas" if (kernel_ok and ng >= 1) else "stacked"
+    if config.forward_impl == "auto":
+        fwd_fused = kernel_ok
+    else:
+        fwd_fused = config.forward_impl == "fused"
+    return impl, fwd_fused
+
+
 def _solve_batched(problem: Problem, config: FmpcConfig, t0, x0s,
                    variables: FmpcVariable, barrier_eps0s) -> FmpcResult:
     """Natively-batched FMPC solve.  Public layout is batch-first; internally
@@ -1005,31 +1027,7 @@ def _solve_batched(problem: Problem, config: FmpcConfig, t0, x0s,
     ws_valid = (jnp.all(var.ss * gm3 >= 0, axis=(0, 1))
                 & jnp.all(var.nus * gm3 >= 0, axis=(0, 1)))
 
-    # condensed-Riccati kernel selection (static at trace time)
-    impl = config.backward_impl
-    if impl == "auto":
-        # The fused Pallas kernel wins on hardware (benchmarks/
-        # bench_fmpc_backward.py) but requires full 128-lane tiles, fp32,
-        # at least one inequality row, a real TPU, and a shape that fits
-        # the VMEM budget at SUB=1.  Parity contract: converged lanes match
-        # the stacked path to ~1e-6 and status/iters match exactly; on
-        # DIVERGING lanes (KKT blowing up) trajectories differ at the level
-        # of the solve's intrinsic fp32 sensitivity — a 1-ulp x0
-        # perturbation of the stacked path alone produces the same-order
-        # difference (tools/debug_fmpc_pallas.py, pinned by
-        # tests/test_pallas_kernels.py::test_pallas_fmpc_solve_batch_*).
-        from nmpc_tpu.kernels.fmpc_backward_pallas import (
-            fmpc_pallas_fits_vmem)
-        # N >= 50: at short horizons the stacked XLA scan wins end-to-end
-        # (oscillator N=20 B=4096 measured 4.61M solves/s stacked vs 3.96M
-        # pallas — the per-call launch/DMA setup doesn't amortize over 20
-        # stages), while at N=100 the fused kernel wins 1.44x
-        # (benchmarks/bench_fmpc_backward.py, 2026-08-21)
-        eligible = (B % 128 == 0 and dtype == jnp.float32 and ng >= 1
-                    and N >= 50
-                    and jax.default_backend() == "tpu"
-                    and fmpc_pallas_fits_vmem(nx, nu_dim, ng, N, B))
-        impl = "pallas" if eligible else "stacked"
+    impl, fwd_fused = _resolve_impls(config, dtype, ng)
     if impl == "pallas":
         from nmpc_tpu.kernels.fmpc_backward_pallas import backward_fmpc_pallas
 
@@ -1039,22 +1037,6 @@ def _solve_batched(problem: Problem, config: FmpcConfig, t0, x0s,
     else:
         def backward_fn(co, ss, nus, eps):
             return _backward_bm(problem, config, co, ss, nus, gms, eps)
-
-    # forward delta-recursion kernel selection (FmpcConfig.forward_impl):
-    # unlike the backward, the fused forward wins at EVERY measured bench
-    # shape (its scan's per-stage body is a handful of mat-vecs — pure
-    # sequencing overhead): cart-pole N=100 B=4096 +50 %, oscillator
-    # N=20 B=4096 +5 %, N=100 B=1024 +5.6 % (e2e, reps>=16, 2026-08-21),
-    # so auto gates only on the kernel's hard requirements.
-    if config.forward_impl == "fused":
-        assert B % 128 == 0 and dtype == jnp.float32, (
-            "forward_impl='fused' requires B % 128 == 0 and fp32")
-        fwd_fused = True
-    elif config.forward_impl == "scan":
-        fwd_fused = False
-    else:
-        fwd_fused = (B % 128 == 0 and dtype == jnp.float32
-                     and jax.default_backend() == "tpu")
 
     def check(var, eps):
         """Barrier update + coefficients + KKT error (FmpcSolver.hpp:377-448),

@@ -1,4 +1,4 @@
-"""Matrix-free GMRES with Givens-rotation triangularization, TPU-native.
+"""Matrix-free GMRES with Givens-rotation triangularization, batched in XLA.
 
 Algorithmic equivalent of the reference ``nmpc_cgmres::Gmres``
 (``nmpc_cgmres/include/nmpc_cgmres/Gmres.h:42-192``; Kelley 1995, Alg. 3.5.1):
@@ -7,7 +7,7 @@ Arnoldi with modified Gram-Schmidt, conditional reorthogonalization
 (``Gmres.h:136-168``), residual tracked as |g[k]|, early exit at
 rho <= eps * ||b||.
 
-TPU redesign: fixed-shape workspace ([k_max+1, n] basis, [k_max+1, k_max]
+Static-shape redesign: fixed-shape workspace ([k_max+1, n] basis, [k_max+1, k_max]
 Hessenberg) with a ``lax.while_loop`` over Arnoldi iterations — one operator
 application per iteration, inner recurrences as masked ``fori_loop``.  Under
 ``vmap`` this batches across independent systems, which is how the C/GMRES

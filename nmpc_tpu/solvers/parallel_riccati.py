@@ -2,7 +2,7 @@
 
 The Riccati recursion is a linear chain (``DDPSolver.hpp:367``,
 ``FmpcSolver.hpp:551``) — O(N) sequential depth.  For long horizons the
-TPU-native alternative is temporal parallelization: the backward value
+accelerator-native alternative is temporal parallelization: the backward value
 recursion is a composition of *Riccati flows*, which are closed under
 composition and associative, so ``jax.lax.associative_scan`` evaluates all
 suffix value functions in O(log N) depth (cf. Särkkä & García-Fernández,
@@ -114,7 +114,7 @@ def _combine(a, b):
 def _inv_bl(A):
     """Unrolled Gauss-Jordan inverse of [n, n, E] (batch-minor), partial
     pivoting.  Keeps every op elementwise over the trailing element axis —
-    the TPU-friendly shape (dense inv kernels on [E, n, n] are lane-starved)."""
+    the batch-minor shape (dense inv kernels on [E, n, n] leave the batch on a slow axis)."""
     n = A.shape[0]
     a = [[A[i, j] for j in range(n)] for i in range(n)]
     zeros = jnp.zeros_like(A[0, 0])
@@ -147,7 +147,7 @@ def _inv_bl(A):
 def _combine_bl(a, b):
     """Batch-minor combine: same algebra as :func:`_combine` with every
     contraction unrolled over the trailing element axis (see
-    kernels/ddp_backward.py for why this layout matters on TPU)."""
+    kernels/ddp_backward.py for why this layout matters)."""
     from nmpc_tpu.kernels.ddp_backward import _mm, _mT
 
     Fa, Ca, Ja = a

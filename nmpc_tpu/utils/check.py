@@ -5,7 +5,7 @@ central finite differences (pattern: ``TestDDPCartPole.cpp:609-649``,
 ``TestFmpcOscillator.cpp:203-266``, tol 1e-6).  With autodiff the roles
 flip: these helpers validate *user-supplied analytic* derivatives (and the
 autodiff path itself) against central differences, and double as
-fp32-vs-fp64 tolerance audits on TPU.
+fp32-vs-fp64 tolerance audits on the accelerator.
 """
 
 from __future__ import annotations

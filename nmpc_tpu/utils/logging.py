@@ -3,7 +3,7 @@
 The reference gates ``std::cout`` diagnostics on an integer ``print_level``
 (0-3) in every component (``DDPSolver.h:62-63``, ``BoxQP.h:35-36``,
 ``FmpcSolver.h:60-61``; usage e.g. ``DDPSolver.hpp:106-109,198-207``).
-The TPU-native equivalent: ``print_level`` is a *static* config field, so
+The XLA-native equivalent: ``print_level`` is a *static* config field, so
 logging below the threshold is pruned at trace time (zero cost at the
 default level 0); enabled messages emit via ``jax.debug.print`` from inside
 jitted loops, optionally guarded by a runtime predicate (events like

@@ -8,7 +8,7 @@ computation, so phase-level on-device timing is meaningless; instead:
 * :class:`ComputationDuration` reproduces the reference's schema with the
   host-measurable fields (solve / setup / opt) filled by :class:`Stopwatch`,
 * per-kernel timing comes from ``jax.profiler`` traces
-  (:func:`profile_solve`), the TPU-native equivalent of the reference's
+  (:func:`profile_solve`), the XLA-native equivalent of the reference's
   hand-rolled phase timers.
 """
 
@@ -80,10 +80,18 @@ def timed_solve(solver, *args, **kwargs):
     return res, sw.as_computation_duration()
 
 
-def profile_solve(solver, *args, log_dir="/tmp/nmpc_tpu_profile", **kwargs):
+def profile_solve(solver, *args, log_dir=None, **kwargs):
     """Capture a jax.profiler trace of one solve (kernel-level timing —
-    the XLA-native replacement for the reference's phase timers)."""
+    the XLA-native replacement for the reference's phase timers) under
+    ``log_dir`` (default ``<checkout>/.cache/profile``)."""
+    import os
+
     import jax
+
+    from nmpc_tpu.utils.cache import CHECKOUT
+
+    if log_dir is None:
+        log_dir = os.path.join(CHECKOUT, ".cache", "profile")
 
     with jax.profiler.trace(log_dir):
         res = solver.solve(*args, **kwargs)

@@ -122,7 +122,7 @@ def test_boxed_batch_vertical_masked():
 def test_ls_modes_identical_results():
     """The three line-search modes (adaptive "auto", static "head",
     static "sweep") make IDENTICAL accept decisions — only the evaluation
-    schedule differs (round 4; reference serial loop
+    schedule differs (reference serial loop
     DDPSolver.hpp:242-265).  Cart-pole from the hanging pose backtracks
     in early iterations and takes full steps later, so both paths and the
     adaptive switch are exercised."""
@@ -153,8 +153,8 @@ def test_ls_modes_identical_results():
 
 
 def test_ls_modes_identical_results_fp32():
-    """Line-search mode identity at TPU precision (fp32), BIT-exact
-    (VERDICT r4 weak #5 / ADVICE r4 #1): the head path's alpha[0] cost sum
+    """Line-search mode identity at fp32, BIT-exact
+   : the head path's alpha[0] cost sum
     is now accumulated inside the selected-alpha rollout scan with the
     same order and dtype as the sweep path's per-alpha sums, so accept
     decisions cannot diverge even when candidate ratios sit within fp32

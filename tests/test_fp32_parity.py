@@ -1,8 +1,8 @@
-"""fp32 tolerance audit: the TPU precision path vs the fp64 golden solver.
+"""fp32 tolerance audit: the fp32 precision path vs the fp64 golden solver.
 
 BASELINE.md requires u-trajectory parity at the reference configuration
 (cart-pole, horizon 100).  The framework meets 1e-8 at solver precision
-(fp64, tests/test_ddp_cartpole.py).  This audit certifies the fp32 (TPU)
+(fp64, tests/test_ddp_cartpole.py).  This audit certifies the fp32
 path: the achievable u-parity there is governed by problem conditioning —
 Quu ~ 0.02 for this cost scaling, so fp32 gradient noise (~1e-5 absolute on
 costs ~300) maps to u noise ~ noise/Quu ~ 4e-4 in the flat valley — while
@@ -11,15 +11,14 @@ audit pins both numbers and the fp32-calibrated termination behavior
 (DDPConfig.for_fp32; with fp64 thresholds the solver cannot detect
 convergence below fp32 noise and escalates lambda to failure).
 
-The conditioning-floor claim was verified directly (BENCH_RESULTS.md
-"fp32 u-parity floor audit"): running the ENTIRE backward pass in fp64
-inside the otherwise-fp32 pipeline does not improve u-parity (4.4e-4 —
-so compensated/Kahan carries, which are strictly weaker, cannot either),
+The conditioning-floor claim was verified directly: running the ENTIRE
+backward pass in fp64 inside the otherwise-fp32 pipeline does not improve
+u-parity (4.4e-4 — so compensated/Kahan carries, which are strictly
+weaker, cannot either),
 while stiffening Quu by 100x tightens it to 1.2e-4 —
 ``test_stiff_quu_tightens_parity`` pins that scaling law.
 
-Round 4 closed the complementary experiment (VERDICT r3 item #5a):
-extending the fp64 islands to the FORWARD path too (x-carry, line-search
+A complementary experiment, extending the fp64 islands to the FORWARD path too (x-carry, line-search
 u formation and costs at fp64 in all three rollouts, fp32 backward
 kernel) measured 4.4e-4 — WORSE than derivative-islands-only (1.97e-4),
 not better.  The placement of the solution inside the flat optimality
@@ -124,7 +123,7 @@ def test_fp64_meets_1e4_target():
 
 
 def test_deriv_dtype_float64_tightens_parity():
-    """Mixed precision (VERDICT r2 #6): fp64 derivative islands inside an
+    """Mixed precision: fp64 derivative islands inside an
     otherwise-fp32 solve.  The r2 floor audit located the fp32 u-parity
     floor in the derivative/forward path conditioning; deriv_dtype='float64'
     evaluates the dynamics/cost quadraticizations in fp64 (cast back to

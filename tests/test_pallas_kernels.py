@@ -1,5 +1,7 @@
-"""Pallas kernel parity tests (interpreter mode on CPU; the compiled path
-is exercised on real TPU hardware by the benchmark suite)."""
+"""Pallas kernel parity tests: the Triton-route lane kernels run in the
+Pallas interpreter on the CPU.  The compiled kernels are checked against
+the same references on the GPU by ``benchmarks/parity_gate.py`` (run by
+``chip_smoke.py``)."""
 
 import functools
 
@@ -7,13 +9,13 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-from jax.experimental import pallas as pl
+
+from nmpc_tpu.kernels import lane_kernel
 
 
 @pytest.fixture()
 def interpret_pallas(monkeypatch):
-    monkeypatch.setattr(pl, "pallas_call",
-                        functools.partial(pl.pallas_call, interpret=True))
+    monkeypatch.setattr(lane_kernel, "INTERPRET", True)
 
 
 def test_pallas_backward_matches_stacked(interpret_pallas):
@@ -54,9 +56,9 @@ def test_remat_backward_matches_stacked(interpret_pallas):
     """Whole-iteration fused backward with in-kernel derivative
     rematerialization (kernels/ddp_backward_remat.py) vs the sweep +
     stacked backward: the remat kernel re-traces ``_stage_derivs`` on
-    (SUB, 128) tile values from (x_i, u_i), so its derivatives are the
+    (BLOCK,) lane tiles from (x_i, u_i), so its derivatives are the
     same autodiff expressions evaluated on the same inputs — agreement is
-    fp-reassociation-level (VERDICT r4 item #1)."""
+    fp-reassociation-level."""
     from nmpc_tpu.core.types import DDPConfig
     from nmpc_tpu.models.cartpole import make_cartpole_problem
     from nmpc_tpu.solvers import ddp as D
@@ -139,76 +141,6 @@ def test_remat_backward_boxed_matches_stacked(interpret_pallas):
     assert bool(jnp.all(o1[3] == o2[3]))
 
 
-def test_pallas_backward_packed_matches_unpacked(interpret_pallas):
-    """Packed-input (1-DMA-per-stage) kernel vs the default unpacked one.
-    The packed variant is an opt-in experiment (see backward_pallas's
-    docstring for the measured end-to-end A/B); keep its numerics pinned."""
-    from nmpc_tpu.core.types import DDPConfig
-    from nmpc_tpu.models.cartpole import make_cartpole_problem
-    from nmpc_tpu.solvers import ddp as D
-    from nmpc_tpu.kernels.ddp_backward import stack_derivs
-    import nmpc_tpu.kernels.ddp_backward_pallas as P
-
-    p = make_cartpole_problem(0.01)
-    c = DDPConfig(horizon_steps=8, max_iter=10)
-    B = 128
-    rng = np.random.default_rng(3)
-    x0s = jnp.asarray((np.tile([0.0, np.pi, 0.0, 0.0], (B, 1))
-                       + 0.05 * rng.normal(size=(B, 4))).astype(np.float32))
-    us = jnp.asarray(rng.normal(size=(B, 8, 1)).astype(np.float32) * 0.2)
-    xs, _ = D._rollout_stacked(p, c, 0.0, x0s, us)
-    Ds, VxT, VxxT = jax.vmap(
-        functools.partial(D._derivative_sweep, p, c),
-        in_axes=(None, 0, 0))(0.0, xs, us)
-    S = stack_derivs(Ds.Fx, Ds.Fu, Ds.Lx, Ds.Lu, Ds.Lxx, Ds.Luu, Ds.Lxu)
-    VxTs = jnp.moveaxis(VxT, 0, -1)
-    VxxTs = jnp.moveaxis(VxxT, 0, -1)
-    lam = jnp.full((B,), 1e-4, jnp.float32)
-
-    o1 = P.backward_pallas(c, S, VxTs, VxxTs, lam, packed=False)
-    o2 = P.backward_pallas(c, S, VxTs, VxxTs, lam, packed=True)
-    for a, b in zip(o1[:3], o2[:3]):
-        np.testing.assert_allclose(np.asarray(b), np.asarray(a), atol=1e-6)
-    assert bool(jnp.all(o1[3] == o2[3]))
-
-
-def test_pallas_backward_chunked_matches_stage(interpret_pallas, monkeypatch):
-    """Chunked-DMA kernel (opt-in experiment: 7 DMAs per C-stage chunk;
-    measured speed-neutral on chip — see backward_pallas's docstring) vs
-    the per-stage kernel — the stage math is shared, so this pins the
-    chunk addressing (base/idx bookkeeping, chunk-granular double
-    buffering).  N=12 with the chunk chooser gives C in {2,3,4,6,12}, so
-    chunk boundaries are actually crossed."""
-    from nmpc_tpu.core.types import DDPConfig
-    from nmpc_tpu.models.cartpole import make_cartpole_problem
-    from nmpc_tpu.solvers import ddp as D
-    from nmpc_tpu.kernels.ddp_backward import stack_derivs
-    import nmpc_tpu.kernels.ddp_backward_pallas as P
-
-    p = make_cartpole_problem(0.01)
-    c = DDPConfig(horizon_steps=12, max_iter=10)
-    B = 256
-    rng = np.random.default_rng(7)
-    x0s = jnp.asarray((np.tile([0.0, np.pi, 0.0, 0.0], (B, 1))
-                       + 0.05 * rng.normal(size=(B, 4))).astype(np.float32))
-    us = jnp.asarray(rng.normal(size=(B, 12, 1)).astype(np.float32) * 0.2)
-    xs, _ = D._rollout_stacked(p, c, 0.0, x0s, us)
-    Ds, VxT, VxxT = jax.vmap(
-        functools.partial(D._derivative_sweep, p, c),
-        in_axes=(None, 0, 0))(0.0, xs, us)
-    S = stack_derivs(Ds.Fx, Ds.Fu, Ds.Lx, Ds.Lu, Ds.Lxx, Ds.Luu, Ds.Lxu)
-    VxTs = jnp.moveaxis(VxT, 0, -1)
-    VxxTs = jnp.moveaxis(VxxT, 0, -1)
-    lam = jnp.full((B,), 1e-4, jnp.float32)
-
-    o1 = P.backward_pallas(c, S, VxTs, VxxTs, lam, packed=False)
-    monkeypatch.setenv("NMPC_PALLAS_DMA", "chunked")
-    o2 = P.backward_pallas(c, S, VxTs, VxxTs, lam)
-    for a, b in zip(o1[:3], o2[:3]):
-        np.testing.assert_allclose(np.asarray(b), np.asarray(a), atol=1e-6)
-    assert bool(jnp.all(o1[3] == o2[3]))
-
-
 def _boxed_backward_case():
     """First-iteration stacked derivative data for the vertical-motion
     boxed config (time-varying input dims + control limits), the same
@@ -226,7 +158,7 @@ def _boxed_backward_case():
     # max_ls_iter=16 keeps the interpreter tractable (the kernel unrolls
     # the full schedule); both paths share the schedule, so parity is
     # pinned on the same semantics — full-width parity is checked compiled
-    # on the real chip by benchmarks/profile_boxed_ddp.py
+    # on the GPU by benchmarks/parity_gate.py
     config = DDPConfig(horizon_steps=N, max_iter=3, initial_lambda=1e-6,
                        with_input_constraint=True,
                        boxqp=BoxQPConfig(max_ls_iter=16))
@@ -309,7 +241,7 @@ def test_remat_solve_end_to_end(interpret_pallas):
     accept decisions (measured: ~1e-3 u drift and occasional ±1-iter
     flips by iteration 6 on mid-swing cart-pole lanes — the same
     documented iterated-fp32 divergence class as pallas-vs-stacked,
-    bounded on chip by benchmarks/parity_gate.py's e2e entries)."""
+    bounded on the GPU by benchmarks/parity_gate.py's e2e entries)."""
     import dataclasses
     from nmpc_tpu.core.types import DDPConfig
     from nmpc_tpu.models.cartpole import make_cartpole_problem
@@ -338,17 +270,16 @@ def test_remat_solve_end_to_end(interpret_pallas):
 
 
 def test_forward_remat_matches_scan(interpret_pallas):
-    """Fused forward line-search kernels (kernels/ddp_forward_remat.py)
-    vs the lax.scan paths: the kernels evaluate the same dynamics / cost
+    """Fused selected-alpha rollout kernel (kernels/ddp_forward_remat.py)
+    vs the lax.scan path: the kernel evaluates the same dynamics / cost
     traces on the same (x, u) values via the tile interpreter, so
     trajectories, per-stage costs, and in-order cost sums agree at
-    fp-reassociation level.  Both variants (per-lane selected alpha and
-    static-schedule sweep) are pinned here."""
+    fp-reassociation level."""
     from nmpc_tpu.core.types import DDPConfig
     from nmpc_tpu.models.cartpole import make_cartpole_problem
     from nmpc_tpu.solvers import ddp as D
     from nmpc_tpu.kernels.ddp_forward_remat import (
-        forward_costs_remat, forward_remat_supported, forward_selected_remat)
+        forward_remat_supported, forward_selected_remat)
     from nmpc_tpu.kernels.lanes import block_lanes, lane_factors
 
     p = make_cartpole_problem(0.01)
@@ -379,19 +310,6 @@ def test_forward_remat_matches_scan(interpret_pallas):
         np.testing.assert_allclose(np.asarray(flat(jnp.asarray(a))),
                                    np.asarray(b), atol=tol)
 
-    c1 = D._forward_costs_lanes(p, c, t0, xs_l, us_l, ks_l, Ks_l)
-    c2 = forward_costs_remat(p, c, t0, flat(xs_l), flat(us_l), flat(ks_l),
-                             flat(Ks_l), tuple(c.alpha_list))
-    np.testing.assert_allclose(np.asarray(flat(c1)), np.asarray(c2),
-                               atol=2e-5)
-    # the sweep variant's alpha slice equals the selected variant's sum
-    # when fed the same alpha — the cross-ls_mode accept-decision contract
-    ia = 3
-    c3 = forward_selected_remat(
-        p, c, t0, flat(xs_l), flat(us_l), flat(ks_l), flat(Ks_l),
-        jnp.full((B,), c.alpha_list[ia], jnp.float32))[3]
-    np.testing.assert_allclose(np.asarray(c2[ia]), np.asarray(c3),
-                               atol=2e-5)
 
 
 def test_forward_fused_solve_end_to_end(interpret_pallas):
@@ -524,24 +442,6 @@ def test_fmpc_forward_fused_solve_end_to_end(interpret_pallas):
                                np.asarray(a.variable.us), atol=2e-4)
 
 
-def test_chunk_chooser_properties():
-    """(C, SUB) from _choose_chunk: C divides N, SUB divides B4, and the
-    scratch + double-buffered outputs fit the VMEM budget."""
-    from nmpc_tpu.kernels.ddp_backward_pallas import _choose_chunk
-
-    for (N, B4, nx, nu) in [(100, 32, 4, 1), (12, 2, 4, 1), (300, 16, 2, 1),
-                            (100, 8, 2, 2), (2000, 32, 4, 1), (7, 1, 4, 1)]:
-        out_floats = N * (nu + nu * nx)
-        F = 2 * nx * nx + 2 * nx * nu + nx + nu + nu * nu
-        C, SUB = _choose_chunk(N, B4, out_floats, F)
-        assert N % C == 0 and B4 % SUB == 0 and C >= 1 and SUB >= 1
-        # Mosaic block rule: SUB is a multiple of 8 or the full B4
-        assert SUB == B4 or SUB % 8 == 0
-        # fits the budget, or degraded to C=1 (== the stage kernel footprint)
-        assert SUB * 128 * 4 * (2 * out_floats + 2 * C * F) <= 11 * 1024 * 1024 \
-            or C == 1
-
-
 def _fmpc_backward_case(break_if_llt_fails):
     from nmpc_tpu.core.types import FmpcConfig, FmpcVariable
     from nmpc_tpu.models.oscillator import make_oscillator_problem
@@ -583,48 +483,6 @@ def test_pallas_fmpc_backward_matches_stacked(interpret_pallas,
                                    atol=3e-5, err_msg=name)
     assert bool(jnp.all(o1[4] == o2[4]))  # ok_pd
     assert bool(jnp.all(o1[5] == o2[5]))  # finite
-
-
-def test_pallas_fmpc_backward_packed_matches_unpacked(interpret_pallas,
-                                                      monkeypatch):
-    """Packed-DMA FMPC kernel (opt-in experiment) vs the default one."""
-    monkeypatch.setenv("NMPC_PALLAS_PACKED", "1")
-    o_packed, o2 = _fmpc_backward_case(False)
-    # o_packed here is the stacked reference (env has no effect on it);
-    # o2 ran the pallas path with the packed kernel
-    names = ["ks", "Ks", "svecs", "Ps"]
-    for name, a, b in zip(names, o_packed[:4], o2[:4]):
-        np.testing.assert_allclose(np.asarray(b), np.asarray(a),
-                                   atol=3e-5, err_msg=name)
-    assert bool(jnp.all(o_packed[4] == o2[4]))
-    assert bool(jnp.all(o_packed[5] == o2[5]))
-
-
-def test_pallas_fmpc_backward_resident_matches_streaming(interpret_pallas,
-                                                         monkeypatch):
-    """Whole-horizon-resident small-shape kernel (round 4 experiment,
-    opt-in via NMPC_FMPC_PALLAS=resident; measured speed-neutral in-graph
-    on chip — see backward_fmpc_pallas) vs the default streaming kernel —
-    the stage math is shared (_fmpc_stage), so this pins the resident
-    block layout and the env dispatch."""
-    from nmpc_tpu.kernels.fmpc_backward_pallas import _pick_sub_resident
-
-    assert _pick_sub_resident(2, 1, 3, 10, 1) is not None  # fits => opt-in
-    monkeypatch.setenv("NMPC_FMPC_PALLAS", "resident")
-    o1, o_res = _fmpc_backward_case(False)
-    monkeypatch.setenv("NMPC_FMPC_PALLAS", "stream")
-    o1b, o_str = _fmpc_backward_case(False)
-    names = ["ks", "Ks", "svecs", "Ps"]
-    for name, a, b, c_ in zip(names, o1[:4], o_res[:4], o_str[:4]):
-        np.testing.assert_allclose(np.asarray(b), np.asarray(a),
-                                   atol=3e-5, err_msg=name)
-        # resident and streaming share _fmpc_stage, but are separately
-        # compiled programs (XLA may contract/reassociate differently):
-        # agreement is fp-noise-level, not bit-exact
-        np.testing.assert_allclose(np.asarray(b), np.asarray(c_),
-                                   atol=1e-5, err_msg=name)
-    assert bool(jnp.all(o1[4] == o_res[4]))
-    assert bool(jnp.all(o1[5] == o_res[5]))
 
 
 def _fmpc_solve_both(max_iter, x0_scale, seed=2, B=128, N=20):

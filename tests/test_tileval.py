@@ -14,26 +14,29 @@ import pytest
 from nmpc_tpu.kernels.tileval import (TileVal, _Ctx, eval_jaxpr_tiles,
                                       jaxpr_tile_supported, TileEvalError)
 
-SUB, L = 8, 128
+BLOCK = 32     # the lane kernels' 1-D tile: one lane per thread
 
 
 def _tiles(rng, n):
-    return [jnp.asarray(rng.normal(size=(SUB, L)).astype(np.float32))
+    return [jnp.asarray(rng.normal(size=(BLOCK,)).astype(np.float32))
             for _ in range(n)]
 
 
 def _materialize(tv: TileVal):
-    """TileVal -> dense [**shape, SUB, L] array (literals broadcast)."""
-    elems = [jnp.broadcast_to(jnp.asarray(e, tv.dtype), (SUB, L))
+    """TileVal -> dense [**shape, BLOCK] array (literals broadcast)."""
+    elems = [jnp.broadcast_to(jnp.asarray(e, tv.dtype), (BLOCK,))
              for e in tv.elems]
-    return jnp.stack(elems).reshape(tv.shape + (SUB, L))
+    return jnp.stack(elems).reshape(tv.shape + (BLOCK,))
+
+
+def _vmap_tile(f, n_arrays):
+    """vmap ``f(scalar_t, *arrays)`` over the trailing tile axis."""
+    return jax.vmap(f, in_axes=(None,) + (-1,) * n_arrays, out_axes=-1)
 
 
 def _ref(f, *arrs):
-    """Reference: vmap f over the two trailing tile axes."""
-    from nmpc_tpu.kernels.lanes import vmap_lanes
-
-    return vmap_lanes(f, len(arrs))(jnp.float32(0.7), *arrs)
+    """Reference: vmap f over the trailing tile axis."""
+    return _vmap_tile(f, len(arrs))(jnp.float32(0.7), *arrs)
 
 
 def _check(f, shapes, seed=0, atol=1e-6):
@@ -46,7 +49,7 @@ def _check(f, shapes, seed=0, atol=1e-6):
     args = [TileVal((), jnp.float32, [jnp.float32(0.7)])] + [
         TileVal(s, jnp.float32, tl) for s, tl in zip(shapes, tile_lists)]
     out = eval_jaxpr_tiles(closed, args, _Ctx())
-    ref = _ref(f, *[jnp.stack(tl).reshape(s + (SUB, L))
+    ref = _ref(f, *[jnp.stack(tl).reshape(s + (BLOCK,))
                     for s, tl in zip(shapes, tile_lists)])
     ref = ref if isinstance(ref, tuple) else (ref,)
     for o, r in zip(out, ref):
@@ -92,7 +95,6 @@ def test_jvp_onehot_seed_folds_to_analytic_columns():
     reproduce jacfwd columns, and constant entries must fold to python
     literals (the sparsification the remat kernel relies on)."""
     from nmpc_tpu.models.cartpole import make_cartpole_problem
-    from nmpc_tpu.kernels.lanes import vmap_lanes
 
     p = make_cartpole_problem(0.01)
     nx, nu = 4, 1
@@ -111,7 +113,7 @@ def test_jvp_onehot_seed_folds_to_analytic_columns():
     rng = np.random.default_rng(0)
     x_t, u_t = _tiles(rng, nx), _tiles(rng, nu)
     t_v = jnp.float32(0.3)
-    f2 = vmap_lanes(lambda tt, xx, uu: p.linearize_dynamics(tt, xx, uu), 2)
+    f2 = _vmap_tile(lambda tt, xx, uu: p.linearize_dynamics(tt, xx, uu), 2)
     Fx, _ = f2(t_v, jnp.stack(x_t), jnp.stack(u_t))
 
     ctx = _Ctx()

@@ -1,6 +1,6 @@
 """Generate markdown API documentation for the nmpc_tpu package.
 
-TPU-repo equivalent of the reference's per-package Doxygen build
+This repository's equivalent of the reference's per-package Doxygen build
 (``/root/reference/nmpc_ddp/doc/CMakeLists.txt:1-11`` and the Doxygen +
 gh-pages upload in ``.github/workflows/ci-colcon.yaml:63-94``): walks every
 module in ``nmpc_tpu``, extracts docstrings and signatures with the stdlib
@@ -155,8 +155,8 @@ def generate(out_dir: str | Path = "docs/api",
     out.mkdir(parents=True, exist_ok=True)
     written = []
     index = ["# nmpc_tpu API reference", "",
-             "Generated by `tools/gen_api_docs.py` (stdlib-only; the",
-             "TPU-repo analog of the reference's Doxygen build).", "",
+             "Generated by `tools/gen_api_docs.py` (stdlib-only; this",
+             "repository's analog of the reference's Doxygen build).", "",
              "| module | summary |", "|---|---|"]
     for module in iter_modules(package_name):
         page = document_module(module)
